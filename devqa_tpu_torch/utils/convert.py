@@ -1,0 +1,58 @@
+"""Carry the JAX package's parameters into the port.
+
+The JAX package keeps parameters as pytrees of arrays; given the same tree
+as numpy arrays (``jax.tree.map(np.asarray, params)``), these functions
+build the port's dicts of tensors, so both packages compute with the same
+weights. Weights keep the ``[in, out]`` layout; the JAX package's
+scan-stacked ``layers`` leaves (ViT, decoder) become lists of per-layer
+dicts. The Q-Former's layers are already a list.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from ..core.vllm import VLLMConfig
+
+
+def _tensors(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, dtype, device) for v in tree]
+    t = torch.from_numpy(np.array(tree, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _unstack(tree, n: int) -> List[Dict[str, Any]]:
+    """{leaf: [n, ...]} → [{leaf: [...]}] * n."""
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+    return [take(tree, i) for i in range(n)]
+
+
+def params_from_jax(np_tree, cfg: VLLMConfig, dtype=None, device="cuda"):
+    """The JAX ``init_vllm_params`` tree (numpy leaves) → the port's VLLM
+    params on ``device`` (floating leaves cast to ``dtype`` if given)."""
+    if cfg.bridge != "qformer":
+        raise NotImplementedError("only the Q-Former bridge is ported")
+    out = {}
+    for name, sub in np_tree.items():
+        sub = dict(sub) if isinstance(sub, dict) else sub
+        if name == "vit":
+            sub["layers"] = _unstack(sub["layers"], cfg.vit.n_layers)
+        elif name == "decoder":
+            sub["layers"] = _unstack(sub["layers"], cfg.decoder.n_layers)
+        out[name] = _tensors(sub, dtype, device)
+    return out
+
+
+def liveedit_params_from_jax(np_tree, device="cuda"):
+    """The JAX ``init_liveedit_params`` tree (numpy leaves) → the port's
+    LiveEdit params (float32, same keys) on ``device``."""
+    return _tensors(np_tree, torch.float32, device)
