@@ -17,14 +17,27 @@ Phases, each printing one JSON line on stdout:
    warm split of 10 cases and one timed split of 10; the kernels' launch
    counts are set to 0 just before the timed split and read just after;
 5. reference — the same model with every attention call on the plain
-   version, on a few probes: the logits must agree.
+   version, on a few probes: the logits must agree;
+6. kernel_bwd — the backward kernels (K2 dq, K3 dk/dv) at the training
+   path's shapes and at edge cases, held against their plain version:
+   each gradient within 2e-2 of its largest plain value, exact zeros for
+   masked keys and dead rows; timed beside the plain version and the
+   library's backward;
+7. train_path — LiveEdit meta-training of the same model (the one
+   BLIP-2 init is shared) through ``EditorTrainer``: one warm step, then
+   timed steps with the launch counts set to 0 just before and read just
+   after, ending with the trainer's "Best" flush;
+8. train_reference — one loss and gradient evaluation with the kernels
+   and again with every attention call, forward and backward, on the
+   plain versions: loss and gradients must agree.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero without that last line; so does a host without a CUDA device.
-``--profile`` also traces the timed split with ``torch.profiler``, prints
-its device busy share and device time by kernel family (a report, not a
-check) and writes every kernel's time to ``build/profile_kernels.txt``.
+``--profile`` also traces the timed split and the timed training steps
+with ``torch.profiler``, prints their device busy share and device time by
+kernel family (a report, not a check) and writes every kernel's time to
+``build/profile_kernels.txt`` and ``build/profile_train_kernels.txt``.
 """
 import argparse
 import contextlib
@@ -48,6 +61,18 @@ BF16_FLOP_PER_S = 989e12
 OUT_TOL = 2e-2    # output max-abs: bf16 rounding of P and of the output
 LSE_TOL = 1e-3    # lse max-abs on live rows: f32 sums in another order
 LOGITS_TOL = 5e-2  # relative L2 of end-to-end logits, kernel vs plain
+GRAD_TOL = 2e-2   # backward kernels: max-abs error over max|plain| per tensor
+LOSS_RTOL = 1e-2  # training loss, kernels vs plain attention
+TRAIN_GRAD_TOL = 5e-2  # relative L2 per gradient (bf16 through 10 layers)
+# A leaf whose gradient nearly cancels (a cross-attention's key biases get
+# exactly zero: softmax ignores a shift shared by all keys; its key
+# weights nearly zero when the keys are alike) holds mostly rounding noise,
+# and the plain run's prefix differs from the kernels' by bf16 noise; its
+# error is measured against this share of the whole gradient's norm.
+GRAD_NOISE_FLOOR = 1e-4
+
+TRAIN_BATCH = 4   # cases per training step (the reference CLI's default)
+TRAIN_STEPS = 8   # timed training steps after the warm one
 
 SPLIT = 10        # cases per sequential-edit split (edit_n)
 
@@ -195,6 +220,136 @@ def check_flash_kernel(attn):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the backward kernels against their plain version
+# ---------------------------------------------------------------------------
+
+# (label, B, H, Lq, Lk, D, mask, causal) — the training path's suffix
+# calls (OPT layers 22-31 over [slot 32 | text 32]): reliability (4 rows),
+# generality (2 keys x 4) and locality (6 keys x 4); then causal Lq < Lk,
+# ragged lengths with a dead row at the ViT's head dim 88, and the
+# Q-Former's head dim 64.
+BWD_CASES = [
+    ("train_rel", 4, 32, 64, 64, 80, "slot", True),
+    ("train_gen", 8, 32, 64, 64, 80, "slot", True),
+    ("train_loc", 24, 32, 64, 64, 80, "slot", True),
+    ("causal_lq_lt_lk", 4, 32, 16, 200, 80, "prefix", True),
+    ("ragged_dead_d88", 3, 5, 77, 131, 88, "random", False),
+    ("causal_d64", 4, 12, 70, 70, 64, "prefix", True),
+]
+
+
+def _bound(n_bytes, n_flops):
+    b, f = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOP_PER_S
+    return 1e3 * max(b, f), ("bytes" if b >= f else "operations")
+
+
+def _sdpa_bwd_ms(q, k, v, do, mask):
+    """Device ms of the library's attention backward on the same inputs:
+    forward + backward minus forward (the port never calls it)."""
+    import torch.nn.functional as F
+
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        return torch.autograd.grad(o, (qs, ks, vs), do)
+
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def check_bwd_kernels(attn):
+    """Every backward case: K2 and K3 against their plain version
+    (computed in float32 from the same bf16 values, with the forward
+    kernel's o and lse), exact zeros where the contract asks, and the
+    timings. Returns one row per case."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = []
+    for label, b, h, lq, lk, d, mask, causal in BWD_CASES:
+        q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device="cuda",
+                                   dtype=torch.bfloat16)
+                       for n in (lq, lk, lk, lq))
+        kv = _kv_valid(mask, b, lk, gen)
+        o, lse = attn.flash_attention(q, k, v, kv, causal, return_lse=True)
+        dq, delta = attn.flash_bwd_dq(q, k, v, kv, causal, o, lse, do)
+        dk, dv = attn.flash_bwd_dkv(q, k, v, kv, causal, lse, delta, do)
+        torch.cuda.synchronize()
+        f = [t.float() for t in (q, k, v, o, do)]
+        rdq, rdelta = attn.flash_bwd_dq_ref(f[0], f[1], f[2], kv, causal,
+                                            f[3], lse, f[4])
+        rdk, rdv = attn.flash_bwd_dkv_ref(f[0], f[1], f[2], kv, causal, lse,
+                                          rdelta, f[4])
+        errs, rel = {}, {}
+        for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                               ("dv", dv, rdv)):
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError("%s not finite at %s" % (name, label))
+            errs[name] = (got.float() - ref).abs().max().item()
+            rel[name] = errs[name] / max(ref.abs().max().item(), 1e-30)
+        delta_err = (delta - rdelta).abs().max().item()
+        dead_rows = lse == attn.NEG_INF
+        zeros_ok = bool((dq[dead_rows] == 0).all())
+        n_masked_keys = 0
+        if kv is not None:
+            masked = (kv == 0)[:, None, :, None].expand_as(dk)
+            n_masked_keys = int((kv == 0).sum()) * h
+            zeros_ok = zeros_ok and bool((dk[masked] == 0).all()
+                                         and (dv[masked] == 0).all())
+        if not (max(rel.values()) <= GRAD_TOL and delta_err <= LSE_TOL
+                and zeros_ok):
+            raise AssertionError(
+                "flash backward disagrees with its plain version at %s %s: "
+                "error / max|plain| %s (tol %g), delta err %.3g, exact zeros "
+                "%s" % (label, (b, h, lq, lk, d), rel, GRAD_TOL, delta_err,
+                        zeros_ok))
+
+        n_pairs = h * int(_live_pairs(kv, b, lq, lk, causal).sum().item())
+        e_q, e_k = q.numel(), k.numel()   # elements of q-like, k-like
+        n_rows = lse.numel()
+        mask_bytes = 0 if kv is None else 4 * kv.numel()
+        # K2 reads q, k, v, o, dO, lse and the mask, writes dq and delta;
+        # K3 reads q, k, v, dO, lse, delta and the mask, writes dk and dv;
+        # the backward as a whole reads q, k, v, o, dO, lse, delta and the
+        # mask once and writes dq, dk and dv once. Operations per live
+        # pair: 2·D for each of the products it needs (S and dP for both
+        # kernels, then dS·K; Pᵀ·dO and dSᵀ·Q).
+        dq_bound = _bound(2 * (3 * e_q + 2 * e_k) + 8 * n_rows + mask_bytes,
+                          6 * d * n_pairs)
+        dkv_bound = _bound(2 * (2 * e_q + 4 * e_k) + 8 * n_rows + mask_bytes,
+                           8 * d * n_pairs)
+        all_bound = _bound(2 * (4 * e_q + 4 * e_k) + 8 * n_rows + mask_bytes,
+                           10 * d * n_pairs)
+        dq_ms = cuda_ms(lambda: attn.flash_bwd_dq(q, k, v, kv, causal, o,
+                                                  lse, do))
+        dkv_ms = cuda_ms(lambda: attn.flash_bwd_dkv(q, k, v, kv, causal, lse,
+                                                    delta, do))
+        dq_plain = cuda_ms(lambda: attn.flash_bwd_dq_ref(q, k, v, kv, causal,
+                                                         o, lse, do))
+        dkv_plain = cuda_ms(lambda: attn.flash_bwd_dkv_ref(
+            q, k, v, kv, causal, lse, delta, do))
+        sdpa_mask = (None if (kv is None and not causal)
+                     else _live_pairs(kv, b, lq, lk, causal)[:, None])
+        library_ms = _sdpa_bwd_ms(q, k, v, do, sdpa_mask)
+        rows.append({
+            "shape": label, "q": [b, h, lq, d], "kv": [b, h, lk, d],
+            "mask": mask, "causal": causal,
+            "dead_rows": int(dead_rows.sum()), "masked_keys": n_masked_keys,
+            "max_abs_err": errs, "err_over_max_plain": rel,
+            "delta_max_abs_err": delta_err, "exact_zeros": zeros_ok,
+            "dq_ms": dq_ms, "dkv_ms": dkv_ms, "dq_plain_ms": dq_plain,
+            "dkv_plain_ms": dkv_plain, "library_bwd_ms": library_ms,
+            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+            "bwd_bound_ms": all_bound[0], "bwd_bound_by": all_bound[1],
+            "live_pairs": n_pairs})
+        emit({"phase": "kernel_bwd", **rows[-1]})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -240,14 +395,16 @@ def _finite_tree(tree) -> bool:
 # cuBLAS bf16 products, and PyTorch's elementwise and reduction kernels.
 KERNEL_FAMILIES = [
     ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("gemm_f32", ("f32f32", "sgemm")),
     ("gemm_bf16", ("nvjet", "gemm", "cutlass")),
     ("elementwise_reduce", ("elementwise", "reduce_kernel")),
 ]
 
 
-def _profile_report(prof, wall_s, out_dir):
-    """Device busy share and kernel time by name from a profiler trace."""
+def _profile_report(prof, wall_s, out_dir, file_name="profile_kernels.txt"):
+    """Device busy share and kernel time by name from a profiler trace;
+    every kernel's time goes to ``out_dir/file_name``."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
@@ -275,7 +432,7 @@ def _profile_report(prof, wall_s, out_dir):
             k in name for k in keys)), "other")
         families[fam] = families.get(fam, 0.0) + us / 1e3
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir, file_name), "w") as f:
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
             f.write("%12.1f us  %s\n" % (us, name))
     return {"wall_s": wall_s, "device_busy_s": busy / 1e6,
@@ -290,11 +447,43 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def drive_main_path(cfg, device="cuda", profile=False, out_dir=None):
+def reset_launches():
+    from devqa_tpu_torch.ops import attention as attn
+
+    for fn in (attn.flash_attention, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        fn.launches = 0
+
+
+def read_launches():
+    """(flash_fwd, flash_bwd_dq, flash_bwd_dkv) launch counts."""
+    from devqa_tpu_torch.ops import attention as attn
+
+    return (attn.flash_attention.launches, attn.flash_bwd_dq.launches,
+            attn.flash_bwd_dkv.launches)
+
+
+def init_backbone(cfg, device="cuda"):
+    """Random bf16 weights of ``cfg`` from seed 0 → (params, setup line)."""
+    from devqa_tpu_torch.core import vllm as V
+
+    t0 = time.time()
+    params = V.init_vllm_params(
+        cfg, torch.Generator(device=device).manual_seed(0), torch.bfloat16,
+        device)
+    _sync(device)
+    line = {"model": cfg.name, "init_s": time.time() - t0,
+            "params": sum(t.numel() for t in _leaves(params)),
+            "weights_gb": sum(t.numel() * t.element_size()
+                              for t in _leaves(params)) / 1e9}
+    return params, line
+
+
+def drive_main_path(cfg, device="cuda", profile=False, out_dir=None,
+                    params=None):
     """The fused LiveEdit sequential evaluation of ``cfg`` on ``device``
     (the script passes BLIP-2-OPT-2.7b and the card; a CPU run at a small
-    width rehearses the same code). Returns (launches, summary, reference)."""
-    from devqa_tpu_torch.core import vllm as V
+    width rehearses the same code), on ``params`` or a fresh random init.
+    Returns (launches, summary, reference)."""
     from devqa_tpu_torch.core.tokenizer import ToyTokenizer
     from devqa_tpu_torch.core.wrapper import TorchVLLM
     from devqa_tpu_torch.data.images import SyntheticImageProvider
@@ -305,13 +494,9 @@ def drive_main_path(cfg, device="cuda", profile=False, out_dir=None):
     from devqa_tpu_torch.retrieval.store import hash_encoder
 
     on_card = torch.device(device).type == "cuda"
-    t0 = time.time()
-    params = V.init_vllm_params(
-        cfg, torch.Generator(device=device).manual_seed(0), torch.bfloat16,
-        device)
-    _sync(device)
-    init_s = time.time() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    setup = {}
+    if params is None:
+        params, setup = init_backbone(cfg, device)
     vllm = TorchVLLM(cfg, params, ToyTokenizer(cfg.decoder.vocab_size),
                      SyntheticImageProvider(cfg.vit.image_size),
                      bucket_multiple=32, min_len=32, img_cache_size=256,
@@ -321,10 +506,7 @@ def drive_main_path(cfg, device="cuda", profile=False, out_dir=None):
                           edit_layer_i=min(21, cfg.decoder.n_layers - 2),
                           max_edits=1024, retrieve_top_k=8)
     editor = LiveEdit(vllm, lcfg, seed=0)
-    emit({"phase": "main_path_setup", "model": cfg.name,
-          "params": n_params, "init_s": init_s,
-          "weights_gb": sum(t.numel() * t.element_size()
-                            for t in _leaves(params)) / 1e9})
+    emit({"phase": "main_path_setup", "model": cfg.name, **setup})
 
     with tempfile.TemporaryDirectory() as tmp:
         data = EVQA(build_cases(2 * SPLIT + 8, tmp), tmp,
@@ -360,7 +542,7 @@ def drive_main_path(cfg, device="cuda", profile=False, out_dir=None):
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
-        attn.flash_attention.launches = 0
+        reset_launches()
         t2 = time.time()
         fe = run(SPLIT, "timed")
         _sync(device)
@@ -370,6 +552,8 @@ def drive_main_path(cfg, device="cuda", profile=False, out_dir=None):
             prof.__exit__(None, None, None)
         if on_card and launches <= 0:
             raise AssertionError("the main path launched flash_fwd no time")
+        if read_launches()[1:] != (0, 0):
+            raise AssertionError("the evaluation launched a backward kernel")
 
         seq_dir = os.path.join(res_dir, "liveedit", cfg.name, "timed",
                                "sequential_edit_%d" % SPLIT)
@@ -454,20 +638,12 @@ def compare_with_plain_attention(vllm, case, on_card=True):
     img_k, logits_k, live = forward()
     if on_card and attn.flash_attention.launches == n0:
         raise AssertionError("the kernel side of the comparison ran no kernel")
-    kernel = attn.flash_attention
-    attn.flash_attention = (lambda q, k, v, kv_valid=None, causal=False:
-                            attn.flash_attention_ref(q, k, v, kv_valid, causal))
-    try:
+    with plain_attention():
         img_p, logits_p, _ = forward()
-    finally:
-        attn.flash_attention = kernel
-
-    def rel(a, b):
-        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
     out = {"phase": "reference", "rows": len(specs),
-           "vision_rel_l2": rel(img_k, img_p),
-           "logits_rel_l2": rel(logits_k[live], logits_p[live]),
+           "vision_rel_l2": _rel_l2(img_k, img_p),
+           "logits_rel_l2": _rel_l2(logits_k[live], logits_p[live]),
            "argmax_agreement": (logits_k[live].argmax(-1)
                                 == logits_p[live].argmax(-1)).float()
            .mean().item(),
@@ -476,6 +652,243 @@ def compare_with_plain_attention(vllm, case, on_card=True):
     if not (out["vision_rel_l2"] <= LOGITS_TOL
             and out["logits_rel_l2"] <= LOGITS_TOL):
         raise AssertionError("kernel path and plain path disagree: %s" % out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: LiveEdit meta-training
+# ---------------------------------------------------------------------------
+
+def drive_train_path(cfg, params, device="cuda", steps=TRAIN_STEPS,
+                     profile=False, out_dir=None):
+    """LiveEdit meta-training of ``cfg`` (backbone ``params``, frozen)
+    through ``EditorTrainer``: one warm step, then ``steps`` timed steps of
+    ``TRAIN_BATCH`` cases ending with the trainer's "Best" flush into a
+    temporary directory (traced with ``torch.profiler`` when ``profile``).
+    Returns (summary line, editor, one organized batch for the reference
+    phase)."""
+    from devqa_tpu_torch.core.tokenizer import ToyTokenizer
+    from devqa_tpu_torch.core.wrapper import TorchVLLM
+    from devqa_tpu_torch.data.images import SyntheticImageProvider
+    from devqa_tpu_torch.data.schema import EVQA
+    from devqa_tpu_torch.editors.liveedit import (LiveEditConfig,
+                                                  LiveEditTrainable)
+    from devqa_tpu_torch.retrieval.store import hash_encoder
+    from devqa_tpu_torch.train.loop import CKPT_FILE, EditorTrainer
+
+    on_card = torch.device(device).type == "cuda"
+    vllm = TorchVLLM(cfg, params, ToyTokenizer(cfg.decoder.vocab_size),
+                     SyntheticImageProvider(cfg.vit.image_size),
+                     bucket_multiple=32, min_len=32, img_cache_size=256,
+                     img_batch_pad=8)
+    lcfg = LiveEditConfig(edit_model_name=cfg.name,
+                          llm_mid_dim=cfg.decoder.d_model,
+                          edit_layer_i=min(21, cfg.decoder.n_layers - 2))
+    editor = LiveEditTrainable(vllm, lcfg, seed=0)
+    # Layers after the edit residual, each differentiated once per suffix
+    # (with faithful_mid_layer_rerun the re-run edit layer acts on the
+    # frozen representation, so it needs no gradient either way).
+    n_layers = cfg.decoder.n_layers - lcfg.edit_layer_i - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        data = EVQA(build_cases(TRAIN_BATCH * (steps + 2), tmp), tmp,
+                    encoder=hash_encoder(16), device=device)
+        cases = data.data
+        t0 = time.time()
+        warm_batch = editor.organize_batch_data(cases[:TRAIN_BATCH])
+        warm_loss, _ = editor.train_step(warm_batch)
+        _sync(device)
+        warm_s = time.time() - t0
+
+        trainer = EditorTrainer(editor, data, batch_size=TRAIN_BATCH,
+                                records_dir=os.path.join(tmp, "records"),
+                                train_name="smoke", random_seed=0,
+                                data_buffer_size=2, log_per_i=1,
+                                save_ckpt_per_i=10 ** 6)
+        step_ms, losses, comps = [], [], []
+        inner = editor.train_step
+
+        def timed_step(batch):
+            _sync(device)
+            t = time.time()
+            loss, logs = inner(batch)  # float(): the step has finished
+            step_ms.append(1e3 * (time.time() - t))
+            losses.append(loss)
+            comps.append(logs)
+            return loss, logs
+
+        editor.train_step = timed_step
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        prof = None
+        if profile:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        reset_launches()
+        t1 = time.time()
+        trainer.train(total_epochs=1, max_steps=steps)
+        _sync(device)
+        train_s = time.time() - t1
+        launches = read_launches()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        editor.train_step = inner
+        best = os.path.join(trainer.ckpt_dir, "Best")
+        best_ok = (os.path.isfile(os.path.join(best, CKPT_FILE))
+                   and os.path.isfile(best + ".resume.json"))
+        best_mb = (os.path.getsize(os.path.join(best, CKPT_FILE)) / 1e6
+                   if best_ok else 0.0)
+        ref_batch = editor.organize_batch_data(cases[-TRAIN_BATCH:])
+    per_step = 3 * n_layers  # reliability, generality, locality suffixes
+    line = {"phase": "train_path", "model": cfg.name,
+            "batch_size": TRAIN_BATCH, "rows_per_step": int(
+                ref_batch["embeds"].shape[0]),
+            "row_tokens": int(ref_batch["embeds"].shape[1]),
+            "faithful_mid_layer_rerun": lcfg.faithful_mid_layer_rerun,
+            "warm_s": warm_s, "warm_loss": warm_loss, "steps": len(step_ms),
+            "step_ms": step_ms,
+            "step_ms_median_last_half": float(np.median(
+                step_ms[len(step_ms) // 2:])) if step_ms else None,
+            "train_s_with_best_flush": train_s,
+            "losses": losses, "loss_components": comps,
+            "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"), launches)),
+            "bwd_launches_per_step_expected": per_step,
+            "best_checkpoint": best_ok, "best_checkpoint_mb": best_mb,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if on_card else None)}
+    emit(line)
+    if prof is not None:
+        emit({"phase": "train_profile", **_profile_report(
+            prof, train_s, out_dir, "profile_train_kernels.txt")})
+    if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+            and all(_finite_tree(c) for c in comps)):
+        raise AssertionError("training loss not finite: %s" % losses)
+    if not best_ok:
+        raise AssertionError("the trainer wrote no Best checkpoint")
+    if on_card and not (launches[1] == launches[2] == per_step * steps
+                        and launches[0] >= per_step * steps):
+        raise AssertionError("the training steps did not launch the kernels "
+                             "%d times each per step: %s" % (per_step,
+                                                             launches))
+    return line, editor, ref_batch
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every attention call, forward and backward, on the plain versions
+    (the autograd Function stays, so the backward is the plain one)."""
+    from devqa_tpu_torch.ops import attention as attn
+
+    fwd, bwd = attn.flash_attention, attn.flash_attention_bwd
+
+    def plain_forward(q, k, v, kv_valid=None, causal=False,
+                      return_lse=False):
+        if (not return_lse and torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad or v.requires_grad)):
+            return attn.FlashAttention.apply(q, k, v, kv_valid, causal)
+        return attn.flash_attention_ref(q, k, v, kv_valid, causal,
+                                        return_lse)
+
+    attn.flash_attention = plain_forward
+    attn.flash_attention_bwd = attn.flash_attention_bwd_ref
+    try:
+        reset_launches()
+        yield
+        if read_launches() != (0, 0, 0):
+            raise AssertionError("the plain side launched a kernel")
+    finally:
+        attn.flash_attention, attn.flash_attention_bwd = fwd, bwd
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def compare_training_with_plain_attention(editor, batch, on_card=True):
+    """Training with the kernels against training with every attention
+    call (forward and backward) on the plain versions: the loss and the
+    LiveEdit gradients of one evaluation, and the gradient of the suffix's
+    label loss with respect to its input (all rows, from one shared
+    representation) must agree."""
+    from devqa_tpu_torch.core import decoder as dec
+    from devqa_tpu_torch.editors.liveedit import (_per_row_label_loss,
+                                                  param_leaves)
+
+    def loss_and_grads():
+        editor._opt.zero_grad(set_to_none=True)
+        loss, _ = editor.train_loss(editor.params, batch)
+        loss.backward()
+        grads = {path: t.grad.detach().float().clone()
+                 for path, t in param_leaves(editor.params)}
+        editor._opt.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    vcfg = editor.vllm.cfg
+    dparams = editor.vllm.params["decoder"]
+    lo = editor.cfg.edit_layer_i + 1
+    kv = batch["kv_valid"]
+    with torch.no_grad():
+        reps = dec.decoder_forward(dparams, vcfg.decoder, batch["embeds"], kv,
+                                   lo=0, hi=lo)
+
+    def suffix_input_grad():
+        h = reps.detach().clone().requires_grad_(True)
+        logits = dec.decoder_logits(dparams, vcfg.decoder, dec.decoder_forward(
+            dparams, vcfg.decoder, h, kv, lo=lo))
+        _per_row_label_loss(logits, batch["label_ids"],
+                            batch["label_masks"]).backward()
+        return h.grad.float()
+
+    reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    dh_k = suffix_input_grad()
+    kernel_launches = read_launches()
+    if on_card and min(kernel_launches) <= 0:
+        raise AssertionError("the kernel side of the training comparison "
+                             "launched %s" % (kernel_launches,))
+    with plain_attention():
+        loss_p, grads_p = loss_and_grads()
+        dh_p = suffix_input_grad()
+
+    total = math.sqrt(sum(float(g.double().square().sum())
+                          for g in grads_p.values()))
+    floor = GRAD_NOISE_FLOOR * total
+    worst, below_floor, zero, leaves = {}, [], [], {}
+    for path, gp in grads_p.items():
+        name = ".".join(path)
+        norm = float(gp.norm())
+        err = float((grads_k[path] - gp).norm())
+        if norm == 0.0 and err == 0.0:
+            zero.append(name)
+        elif norm < floor:
+            below_floor.append(name)
+        worst[name] = err / max(norm, floor)
+        leaves[name] = [norm, err]
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    out = {"phase": "train_reference", "loss_kernels": loss_k,
+           "loss_plain": loss_p,
+           "loss_rel_diff": abs(loss_k - loss_p) / max(abs(loss_p), 1e-30),
+           "suffix_input_grad_rel_l2": _rel_l2(dh_k, dh_p),
+           "suffix_input_grad_norm": float(dh_p.norm()),
+           "grad_leaves": len(worst), "grad_norm_plain": total,
+           "grad_rel_l2_max": top[0][1], "grad_rel_l2_top": top,
+           "leaves_below_noise_floor": below_floor,
+           "leaves_with_zero_gradient": zero,
+           "leaf_norm_plain_and_err": leaves,
+           "kernel_launches": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv"), kernel_launches)),
+           "tolerance_loss_rel": LOSS_RTOL,
+           "tolerance_grad_rel_l2": TRAIN_GRAD_TOL}
+    emit(out)
+    if not (out["loss_rel_diff"] <= LOSS_RTOL
+            and out["grad_rel_l2_max"] <= TRAIN_GRAD_TOL
+            and out["suffix_input_grad_rel_l2"] <= TRAIN_GRAD_TOL
+            and out["suffix_input_grad_norm"] > 0
+            and math.isfinite(loss_k) and math.isfinite(total)):
+        raise AssertionError("training with the kernels and with plain "
+                             "attention disagree: %s" % out)
     return out
 
 
@@ -499,7 +912,8 @@ def _ptxas_summary(log: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the timed split with torch.profiler")
+                    help="trace the timed split and the timed training "
+                    "steps with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -533,26 +947,68 @@ def main(argv=None) -> int:
                     for n, log in build.BUILD_LOG.items()}})
 
     rows = check_flash_kernel(attn)
+    bwd_rows = check_bwd_kernels(attn)
 
     out_dir = os.path.join(repo, "build")
     from devqa_tpu_torch.core.vllm import blip2_opt_2_7b_config
 
-    launches, _, _ = drive_main_path(blip2_opt_2_7b_config(), "cuda",
-                                     args.profile, out_dir)
+    cfg = blip2_opt_2_7b_config()
+    params, setup = init_backbone(cfg)
+    emit({"phase": "backbone", **setup})
+    launches, _, _ = drive_main_path(cfg, "cuda", args.profile, out_dir,
+                                     params=params)
+    train, editor, ref_batch = drive_train_path(cfg, params,
+                                                profile=args.profile,
+                                                out_dir=out_dir)
+    compare_training_with_plain_attention(editor, ref_batch)
 
-    # The kernel's line: its numbers at the decoder's post-pass shape, the
-    # one the main path launches most; every shape is under "shapes".
+    # Each kernel's line: its numbers at the shape its path launches most
+    # (the decoder's post pass for the forward, the locality suffix for
+    # the backward); every shape is under "shapes".
     top = next(r for r in rows if r["shape"] == "opt_post")
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "devqa_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "devqa_tpu/ops/attention.py:106",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": top["ms"], "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"],
-        "shape": top["shape"], "shapes": rows}]})
+    btop = next(r for r in bwd_rows if r["shape"] == "train_loc")
+    bwd_source = "devqa_tpu_torch/ops/csrc/flash_bwd.cu"
+    library_covers = ("dq, dk and dv: scaled_dot_product_attention forward "
+                      "+ backward minus forward")
+
+    def bwd_line(name, key, replaces, launches):
+        return {
+            "name": name, "route": "cuda", "source": bwd_source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"][t] for r in bwd_rows
+                               for t in key[1]),
+            "max_err_over_max_plain": max(
+                r["err_over_max_plain"][t] for r in bwd_rows
+                for t in key[1]),
+            "ms": btop[key[0] + "_ms"], "plain_ms": btop[key[0] + "_plain_ms"],
+            "bound_ms": btop[key[0] + "_bound_ms"],
+            "bound_by": btop[key[0] + "_bound_by"],
+            "library_ms": btop["library_bwd_ms"],
+            "library_covers": library_covers, "shape": btop["shape"],
+            "shapes": [{k: r[k] for k in ("shape", "q", "kv", key[0] + "_ms",
+                                          key[0] + "_plain_ms",
+                                          key[0] + "_bound_ms",
+                                          "library_bwd_ms", "bwd_bound_ms")}
+                       for r in bwd_rows]}
+
+    emit({"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "devqa_tpu_torch/ops/csrc/flash_fwd.cu",
+         "replaces": "devqa_tpu/ops/attention.py:106",
+         "launches": launches,
+         "launches_by_path": {"fused_eval": launches,
+                              "train": train["launches"]["flash_fwd"]},
+         "max_abs_err": max(r["max_abs_err"] for r in rows),
+         "ms": top["ms"], "plain_ms": top["plain_ms"],
+         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+         "library_ms": top["library_ms"],
+         "shape": top["shape"], "shapes": rows},
+        bwd_line("flash_bwd_dq", ("dq", ("dq",)),
+                 "devqa_tpu/ops/attention.py:615",
+                 train["launches"]["flash_bwd_dq"]),
+        bwd_line("flash_bwd_dkv", ("dkv", ("dk", "dv")),
+                 "devqa_tpu/ops/attention.py:662",
+                 train["launches"]["flash_bwd_dkv"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

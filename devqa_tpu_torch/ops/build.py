@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Every kernel source of the package, by name (``csrc/<name>.cu``).
-KERNELS = ("flash_fwd",)
+KERNELS = ("flash_fwd", "flash_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: name → {"seconds": build wall time, "log": nvcc/ptxas output} for the

@@ -56,3 +56,17 @@ def liveedit_params_from_jax(np_tree, device="cuda"):
     """The JAX ``init_liveedit_params`` tree (numpy leaves) → the port's
     LiveEdit params (float32, same keys) on ``device``."""
     return _tensors(np_tree, torch.float32, device)
+
+
+def liveedit_train_state_from_jax(np_params, np_mu, np_nu, count: int,
+                                  device="cuda"):
+    """A JAX LiveEdit train state → the port's (``LiveEditTrainable.
+    set_train_state``). ``np_params`` is the parameter tree and ``np_mu`` /
+    ``np_nu`` / ``count`` are the ``mu`` / ``nu`` / ``count`` of optax's
+    ``ScaleByAdamState`` (the first element of the optimizer state), all
+    as numpy leaves. The schedule's own count equals Adam's, so one count
+    carries both."""
+    return {"params": liveedit_params_from_jax(np_params, device),
+            "opt_state": {"count": int(count),
+                          "mu": liveedit_params_from_jax(np_mu, device),
+                          "nu": liveedit_params_from_jax(np_nu, device)}}

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``devqa_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``devqa_tpu`` (as
-opposed to ``devqa_tpu_torch``). Only the tests import both."""
+``chip_smoke.py`` imports ``jax``, JAX's ``optax`` or ``orbax``, or the JAX
+package ``devqa_tpu`` (as opposed to ``devqa_tpu_torch``). Only the tests
+import both."""
 import ast
 import os
 
@@ -20,7 +21,7 @@ def _port_files():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "devqa_tpu")
+    return top in ("jax", "jaxlib", "optax", "orbax", "devqa_tpu")
 
 
 def _imported_modules(tree):
@@ -50,13 +51,17 @@ def test_no_jax_or_jax_package_import(relpath):
 def test_scan_sees_every_port_module():
     files = _port_files()
     assert "chip_smoke.py" in files
-    assert os.path.join("devqa_tpu_torch", "ops", "attention.py") in files
+    for mod in (("ops", "attention.py"), ("train", "loop.py"),
+                ("data", "prefetch.py"), ("editors", "liveedit.py")):
+        assert os.path.join("devqa_tpu_torch", *mod) in files
     assert len(files) >= 25
 
 
 def test_scan_flags_jax_package_but_not_the_port():
     src = ("import jax.numpy as jnp\nfrom devqa_tpu.core import vit\n"
            "from devqa_tpu_torch.core import vit as tv\nimport devqa_tpu_torch\n"
-           "importlib.import_module('jax')\n")
+           "importlib.import_module('jax')\nimport optax\n"
+           "import orbax.checkpoint as ocp\n")
     mods = [m for _, m in _imported_modules(ast.parse(src)) if _forbidden(m)]
-    assert mods == ["jax.numpy", "devqa_tpu.core", "jax"]
+    assert sorted(mods) == ["devqa_tpu.core", "jax", "jax.numpy", "optax",
+                            "orbax.checkpoint"]

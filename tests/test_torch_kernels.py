@@ -1,6 +1,6 @@
-"""The flash-attention wrapper's dispatch, and on a CUDA card the kernel
-against its plain version. Imports no JAX, so it runs on the machine with
-the card too:
+"""The flash-attention wrappers' dispatch, and on a CUDA card the forward
+kernel (K1) and the backward kernels (K2 dq, K3 dk/dv) against their plain
+versions. Imports no JAX, so it runs on the machine with the card too:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -53,16 +53,40 @@ def test_multihead_attention_cpu_is_xla_path():
     assert torch.equal(out, ta.xla_attention(q, k, v, kv, causal=True))
 
 
-def test_kernel_path_refuses_gradients_and_other_devices():
-    """Off the CPU the wrapper goes to the kernel, which has no backward
-    yet: a tensor that needs a gradient raises before anything launches,
-    and a tensor on neither the CPU nor a card is refused."""
+def test_kernel_path_refuses_gradients_and_other_devices(monkeypatch):
+    """Off the CPU the wrapper goes to the kernels: a tensor that needs a
+    gradient reaches the autograd Function (whose backward launches K2 and
+    K3), and a tensor on neither the CPU nor a card is refused before
+    anything launches, with or without a gradient."""
     q = torch.empty((1, 1, 8, 64), dtype=torch.bfloat16, device="meta",
                     requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K2"):
+    seen = []
+    with monkeypatch.context() as m:
+        m.setattr(ta.FlashAttention, "apply",
+                  lambda *args: seen.append(args) or "function")
+        assert ta.flash_attention(q, q.detach(), q.detach()) == "function"
+    assert len(seen) == 1 and seen[0][0] is q
+    with pytest.raises(ValueError, match="CUDA"):
         ta.flash_attention(q, q.detach(), q.detach())
     with pytest.raises(ValueError, match="CUDA"):
         ta.flash_attention(q.detach(), q.detach(), q.detach())
+    lse = torch.empty((1, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ta.flash_attention_bwd(q, q, q, None, True, q, lse, q)
+
+
+def test_backward_wrappers_cpu_take_plain_versions():
+    q, k, v, kv = _inputs(2, 2, 6, 9, 8, "deadrow")
+    o, lse = ta.flash_attention_ref(q, k, v, kv, causal=True, return_lse=True)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    n0 = (ta.flash_bwd_dq.launches, ta.flash_bwd_dkv.launches)
+    dq, dk, dv = ta.flash_attention_bwd(q, k, v, kv, True, o, lse, do)
+    assert (ta.flash_bwd_dq.launches, ta.flash_bwd_dkv.launches) == n0
+    ref = ta.flash_attention_bwd_ref(q, k, v, kv, True, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), ref))
+    # masked keys get exactly zero gradient; dead rows exactly zero dq
+    assert torch.all(dk[kv[:, None, :].expand(-1, 2, -1) == 0] == 0)
+    assert torch.all(dq[lse == ta.NEG_INF] == 0)
 
 
 @pytest.mark.parametrize("shape,dtype,kv_dtype,match", [
@@ -130,3 +154,77 @@ def test_kernel_refuses_float32_on_the_card(cuda_device):
     q = torch.zeros((1, 1, 8, 64), device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
         ta.flash_attention(q, q, q)
+
+
+def _bwd_case(cuda_device, b, h, lq, lk, d, mask, causal):
+    """bf16 q/k/v/dO and the forward kernel's o and lse, on the card."""
+    q, k, v, kv = _inputs(b, h, lq, lk, d, mask)
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    kv = None if kv is None else kv.to(cuda_device)
+    do = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(b, h, lq, d)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    o, lse = ta.flash_attention(q, k, v, kv, causal=causal, return_lse=True)
+    return q, k, v, kv, do, o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d,mask,causal", [
+    (4, 4, 64, 64, 80, "prefix", True),        # the training path's shape
+    (2, 3, 70, 70, 88, "nonprefix", True),
+    (2, 2, 33, 130, 80, "deadrow", False),
+    (1, 2, 40, 97, 64, "prefix", True),        # Lq < Lk, ragged
+    (3, 2, 24, 9, 80, "none", True),           # Lq > Lk: early rows dead
+])
+def test_backward_kernels_match_plain_version(cuda_device, b, h, lq, lk, d,
+                                              mask, causal):
+    """K2 and K3 against the plain backward, computed in float32 from the
+    same bf16 values: each of dq, dk, dv within 2e-2 of max|plain| (bf16
+    rounding of p, ds and the outputs); masked keys get exactly zero dk
+    and dv, dead rows exactly zero dq; delta within 1e-3."""
+    q, k, v, kv, do, o, lse = _bwd_case(cuda_device, b, h, lq, lk, d, mask,
+                                        causal)
+    n0 = (ta.flash_bwd_dq.launches, ta.flash_bwd_dkv.launches)
+    dq, delta = ta.flash_bwd_dq(q, k, v, kv, causal, o, lse, do)
+    dk, dv = ta.flash_bwd_dkv(q, k, v, kv, causal, lse, delta, do)
+    torch.cuda.synchronize()
+    assert (ta.flash_bwd_dq.launches, ta.flash_bwd_dkv.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    f = [t.float() for t in (q, k, v, o, do)]
+    rdq, rdelta = ta.flash_bwd_dq_ref(f[0], f[1], f[2], kv, causal, f[3],
+                                      lse, f[4])
+    rdk, rdv = ta.flash_bwd_dkv_ref(f[0], f[1], f[2], kv, causal, lse,
+                                    rdelta, f[4])
+    assert (delta - rdelta).abs().max().item() <= 1e-3
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got.float()).all()
+        tol = 2e-2 * ref.abs().max().item()
+        assert (got.float() - ref).abs().max().item() <= tol
+    if kv is not None:
+        dead_keys = (kv == 0)[:, None, :, None].expand_as(dk)
+        assert torch.all(dk[dead_keys] == 0) and torch.all(dv[dead_keys] == 0)
+    assert torch.all(dq[lse == ta.NEG_INF] == 0)
+    dq2, dk2, dv2 = ta.flash_attention_bwd(q, k, v, kv, causal, o, lse, do)
+    torch.cuda.synchronize()
+    assert torch.equal(dq2, dq) and torch.equal(dk2, dk) and \
+        torch.equal(dv2, dv)
+
+
+@pytest.mark.cuda
+def test_function_gradients_on_the_card(cuda_device):
+    """multihead_attention on CUDA tensors that need a gradient: autograd
+    reaches K2 and K3 through the Function, and the gradients agree with
+    PyTorch's autograd through the plain forward."""
+    q, k, v, kv, do, _, _ = _bwd_case(cuda_device, 2, 4, 64, 64, 80,
+                                      "prefix", True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = (ta.flash_attention.launches, ta.flash_bwd_dq.launches)
+    o = ta.multihead_attention(*leaves, kv_valid=kv, causal=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert ta.flash_attention.launches == n0[0] + 1
+    assert ta.flash_bwd_dq.launches == n0[1] + 1
+    ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ta.flash_attention_ref(*ref, kv, True).backward(do.float())
+    for got, r in zip(leaves, ref):
+        tol = 2e-2 * r.grad.abs().max().item()
+        assert (got.grad.float() - r.grad).abs().max().item() <= tol
