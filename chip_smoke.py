@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``devqa_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--kernels-only]
 
 Phases, each printing one JSON line on stdout:
 
 1. device — the card (``nvidia-smi`` name and power limit, torch's name);
 2. build — compile every hand-written kernel of the path from
-   ``devqa_tpu_torch/ops/csrc`` with nvcc for sm_90a;
+   ``devqa_tpu_torch/ops/csrc`` with nvcc for sm_90a; ptxas's registers,
+   spills and static shared memory per instantiation, and for each
+   flash_fwd instantiation the CUDA runtime's registers, dynamic shared
+   memory and resident blocks per SM;
 3. kernel — call each kernel's wrapper on the card at every shape the
-   main path gives it and hold it against its plain PyTorch version;
-   time the kernel, the plain version and one library call;
+   paths give it and at the design's edge cases, and hold it against its
+   plain PyTorch version; time the kernel, the plain version and one
+   library call;
 4. main path — BLIP-2-OPT-2.7b at full width (random bf16 weights from a
    seed) under LiveEdit (1024-slot pools, top-8 routing, edit layer 21),
    scored by the fused sequential evaluation on synthetic EVQA cases: one
@@ -31,13 +35,17 @@ Phases, each printing one JSON line on stdout:
    and again with every attention call, forward and backward, on the
    plain versions: loss and gradients must agree.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+Then a ``kernel_ranking`` line (flash_fwd's shapes by launches on both
+paths x (ms - bound_ms), the order in which the next redesign takes
+them), a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero without that last line; so does a host without a CUDA device.
 ``--profile`` also traces the timed split and the timed training steps
 with ``torch.profiler``, prints their device busy share and device time by
 kernel family (a report, not a check) and writes every kernel's time to
 ``build/profile_kernels.txt`` and ``build/profile_train_kernels.txt``.
+``--kernels-only`` stops after phase 6 (build and the kernel checks, the
+quickest test of a kernel change) and prints neither of the last lines.
 """
 import argparse
 import contextlib
@@ -45,6 +53,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -115,8 +124,14 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 # (label, B, H, Lq, Lk, D, mask, causal) — the path's shapes: the ViT over
 # 257 tokens in batches of 8 images, the Q-Former's self- and
 # cross-attention, the OPT decoder over [slot 32 | text 32] at the post
-# pass (120 rows), the pre pass (90) and the edit batch (10); then a causal
-# call with Lq < Lk and a ragged one with a dead row.
+# pass (120 rows), the pre pass (90) and the edit batch (10), and the
+# training step's prefix (36 rows) and suffixes (reliability 4,
+# generality 8, locality 24 rows); then shapes no path launches: a causal
+# call with Lq < Lk, a ragged one with a dead row, and the edges of the
+# kernel's design: many key tiles (the load ring wraps), a whole key tile
+# masked between live ones, Lq = 1 and Lk = 1, a grid of many blocks per
+# SM, and each head dim at the one-tile shape. Each row's launches on the
+# evaluation and training paths are counted in the run (launches_by_shape).
 KERNEL_CASES = [
     ("vit", 8, 16, 257, 257, 88, None, False),
     ("qformer_self", 8, 12, 32, 32, 64, None, False),
@@ -124,8 +139,22 @@ KERNEL_CASES = [
     ("opt_post", 120, 32, 64, 64, 80, "slot", True),
     ("opt_pre", 90, 32, 64, 64, 80, "slot", True),
     ("opt_edit", 10, 32, 64, 64, 80, "slot", True),
+    ("train_prefix", 36, 32, 64, 64, 80, "slot", True),
+    ("train_rel", 4, 32, 64, 64, 80, "slot", True),
+    ("train_gen", 8, 32, 64, 64, 80, "slot", True),
+    ("train_loc", 24, 32, 64, 64, 80, "slot", True),
     ("causal_lq_lt_lk", 4, 32, 16, 200, 80, "prefix", True),
     ("ragged", 3, 5, 77, 131, 88, "random", False),
+    ("ring_wrap_d88", 2, 4, 64, 1000, 88, None, False),
+    ("ring_wrap_causal", 1, 2, 128, 1000, 80, "prefix", True),
+    ("masked_tile", 2, 4, 70, 192, 80, "hole", False),
+    ("lq1", 3, 4, 1, 257, 80, "prefix", True),
+    ("lk1", 3, 4, 40, 1, 88, None, True),
+    ("lq1_lk1", 2, 2, 1, 1, 64, None, False),
+    ("many_blocks", 300, 32, 64, 64, 80, "slot", True),
+    ("one_tile_d64", 8, 12, 64, 64, 64, "random", True),
+    ("one_tile_d80", 8, 12, 64, 64, 80, "random", True),
+    ("one_tile_d88", 8, 12, 64, 64, 88, "random", True),
 ]
 
 
@@ -145,6 +174,10 @@ def _kv_valid(kind, b, lk, gen):
         lens = torch.randint(1, lk + 1, (b,), generator=gen, device=dev)
         return (torch.arange(lk, device=dev)[None, :]
                 < lens[:, None]).to(torch.int32)
+    if kind == "hole":  # keys 64-127, a whole key tile, dead between live
+        kv = torch.ones((b, lk), dtype=torch.int32, device=dev)
+        kv[:, 64:128] = 0
+        return kv
     kv = (torch.rand((b, lk), generator=gen, device=dev) < 0.7).to(torch.int32)
     kv[0] = 0  # a batch row with no live key
     return kv
@@ -452,6 +485,17 @@ def reset_launches():
 
     for fn in (attn.flash_attention, attn.flash_bwd_dq, attn.flash_bwd_dkv):
         fn.launches = 0
+    attn.flash_attention.launches_by_shape = {}
+
+
+def launches_by_shape():
+    """flash_fwd's launches since the last reset, as [[B, H, Lq, Lk, D,
+    has kv_valid, causal], count] pairs, the most launched first."""
+    from devqa_tpu_torch.ops import attention as attn
+
+    return sorted(([list(key), n] for key, n in
+                   attn.flash_attention.launches_by_shape.items()),
+                  key=lambda kn: -kn[1])
 
 
 def read_launches():
@@ -548,6 +592,7 @@ def drive_main_path(cfg, device="cuda", profile=False, out_dir=None,
         _sync(device)
         timed_s = time.time() - t2
         launches = attn.flash_attention.launches
+        by_shape = launches_by_shape()
         if prof is not None:
             prof.__exit__(None, None, None)
         if on_card and launches <= 0:
@@ -578,6 +623,7 @@ def drive_main_path(cfg, device="cuda", profile=False, out_dir=None,
                 "warm_s": warm_s, "timed_s": timed_s,
                 "cases_per_s": SPLIT / timed_s,
                 "flash_fwd_launches": launches,
+                "flash_fwd_launches_by_shape": by_shape,
                 "launches_per_case": launches / SPLIT,
                 "counters": {k: vllm.counters[k] - c0[k] for k in c0},
                 "probe_tokens": fe.probe_tokens,
@@ -731,6 +777,7 @@ def drive_train_path(cfg, params, device="cuda", steps=TRAIN_STEPS,
         _sync(device)
         train_s = time.time() - t1
         launches = read_launches()
+        by_shape = launches_by_shape()
         if prof is not None:
             prof.__exit__(None, None, None)
         editor.train_step = inner
@@ -754,6 +801,7 @@ def drive_train_path(cfg, params, device="cuda", steps=TRAIN_STEPS,
             "losses": losses, "loss_components": comps,
             "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
                                   "flash_bwd_dkv"), launches)),
+            "flash_fwd_launches_by_shape": by_shape,
             "bwd_launches_per_step_expected": per_step,
             "best_checkpoint": best_ok, "best_checkpoint_mb": best_mb,
             "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
@@ -893,18 +941,84 @@ def compare_training_with_plain_attention(editor, batch, on_card=True):
 
 
 def _ptxas_summary(log: str) -> dict:
-    """Registers per compiled instantiation and spilled bytes, from nvcc's
-    ``-Xptxas -v`` output."""
-    regs, spills = [], 0
+    """Registers, spilled bytes and static shared memory of every compiled
+    instantiation, from nvcc's ``-Xptxas -v`` output."""
+    fns, cur = [], None
     for ln in log.splitlines():
-        words = ln.replace(",", " ").split()
-        for w, nxt, nxt2 in zip(words, words[1:], words[2:] + [""]):
-            if nxt.startswith("registers") and w.isdigit():
-                regs.append(int(w))
-            elif nxt == "bytes" and nxt2 == "spill" and w.isdigit():
-                spills += int(w)
-    return {"instantiations": len(regs), "max_registers": max(regs, default=0),
-            "spill_bytes": spills}
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = re.search(r"\d+([a-z_]+kernel)I((?:L[a-z]\d+E)+)E",
+                             m.group(1))
+            cur = {"function": ("%s<%s>" % (name.group(1), ",".join(
+                re.findall(r"L[a-z](\d+)E", name.group(2)))) if name
+                else m.group(1)), "registers": 0, "spill_bytes": 0,
+                "smem_static_bytes": 0}
+            fns.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_static_bytes"] = int(sm.group(1)) if sm else 0
+    return {"instantiations": len(fns),
+            "max_registers": max((f["registers"] for f in fns), default=0),
+            "spill_bytes": sum(f["spill_bytes"] for f in fns),
+            "by_function": fns}
+
+
+def flash_fwd_resources(attn):
+    """What the CUDA runtime reports for each flash_fwd instantiation on
+    this card: registers and spilled (local) bytes a thread, dynamic shared
+    memory a block and resident blocks per SM, for one key tile (Lk 64)
+    and for several (Lk 65: a two-stage ring)."""
+    import ctypes
+
+    lib = attn._kernel_lib("flash_fwd")
+    fn = lib.devqa_flash_fwd_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rows = []
+    for d in (64, 80, 88):
+        for has_mask in (0, 1):
+            for causal in (0, 1):
+                for lk in (64, 65):
+                    out = (ctypes.c_int * 4)()
+                    attn._raise_on(fn(d, has_mask, causal, lk, out), lib,
+                                   "flash_fwd_info")
+                    rows.append({"d": d, "mask": has_mask, "causal": causal,
+                                 "stages": 1 if lk <= 64 else 2,
+                                 "registers": out[0], "local_bytes": out[1],
+                                 "smem_bytes": out[2],
+                                 "blocks_per_sm": out[3]})
+    return rows
+
+
+def join_launches(rows, eval_by_shape, train_by_shape):
+    """Put each KERNEL_CASES row's launches on the evaluation and training
+    paths (counted in the run by shape) into the row, with launches x
+    (ms - bound_ms); returns the launched shapes no row matches."""
+    def key(r):
+        b, h, lq, d = r["q"]
+        return (b, h, lq, r["kv"][2], d, r["mask"] is not None, r["causal"])
+
+    counts = {}
+    for path, by_shape in (("fused_eval", eval_by_shape),
+                           ("train", train_by_shape)):
+        for k, n in by_shape:
+            row = counts.setdefault(tuple(k), {"fused_eval": 0, "train": 0})
+            row[path] = n
+    for r in rows:
+        r["launches"] = counts.pop(key(r), {"fused_eval": 0, "train": 0})
+        r["launches_total"] = sum(r["launches"].values())
+        r["launches_x_ms"] = r["launches_total"] * r["ms"]
+        r["launches_x_excess_ms"] = r["launches_total"] * (r["ms"]
+                                                           - r["bound_ms"])
+    return [{"shape": list(k), **v} for k, v in counts.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -914,6 +1028,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the timed split and the timed training "
                     "steps with torch.profiler")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phases (build, kernel, "
+                    "kernel_bwd), without the paths and without the last "
+                    "two lines")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -944,10 +1062,13 @@ def main(argv=None) -> int:
     emit({"phase": "build", "kernels": list(build.KERNELS),
           "seconds": build_s,
           "ptxas": {n: _ptxas_summary(log["log"])
-                    for n, log in build.BUILD_LOG.items()}})
+                    for n, log in build.BUILD_LOG.items()},
+          "flash_fwd_resources": flash_fwd_resources(attn)})
 
     rows = check_flash_kernel(attn)
     bwd_rows = check_bwd_kernels(attn)
+    if args.kernels_only:
+        return 0
 
     out_dir = os.path.join(repo, "build")
     from devqa_tpu_torch.core.vllm import blip2_opt_2_7b_config
@@ -955,17 +1076,25 @@ def main(argv=None) -> int:
     cfg = blip2_opt_2_7b_config()
     params, setup = init_backbone(cfg)
     emit({"phase": "backbone", **setup})
-    launches, _, _ = drive_main_path(cfg, "cuda", args.profile, out_dir,
-                                     params=params)
+    launches, eval_line, _ = drive_main_path(cfg, "cuda", args.profile,
+                                             out_dir, params=params)
     train, editor, ref_batch = drive_train_path(cfg, params,
                                                 profile=args.profile,
                                                 out_dir=out_dir)
     compare_training_with_plain_attention(editor, ref_batch)
 
-    # Each kernel's line: its numbers at the shape its path launches most
-    # (the decoder's post pass for the forward, the locality suffix for
-    # the backward); every shape is under "shapes".
-    top = next(r for r in rows if r["shape"] == "opt_post")
+    # flash_fwd's line headlines the shape with the largest launches x ms
+    # over both paths; every shape, with its launches, is under "shapes".
+    # The backward's headline is the locality suffix, the largest of the
+    # training step's three equal-count shapes.
+    unlisted = join_launches(rows, eval_line["flash_fwd_launches_by_shape"],
+                             train["flash_fwd_launches_by_shape"])
+    top = max(rows, key=lambda r: r["launches_x_ms"])
+    emit({"phase": "kernel_ranking", "kernel": "flash_fwd",
+          "by_launches_x_excess_ms": [
+              [r["shape"], r["launches_total"], r["launches_x_excess_ms"]]
+              for r in sorted(rows, key=lambda r: -r["launches_x_excess_ms"])],
+          "launched_shapes_not_in_kernel_cases": unlisted})
     btop = next(r for r in bwd_rows if r["shape"] == "train_loc")
     bwd_source = "devqa_tpu_torch/ops/csrc/flash_bwd.cu"
     library_covers = ("dq, dk and dv: scaled_dot_product_attention forward "
@@ -998,6 +1127,7 @@ def main(argv=None) -> int:
          "launches": launches,
          "launches_by_path": {"fused_eval": launches,
                               "train": train["launches"]["flash_fwd"]},
+         "launches_at_shape": top["launches"],
          "max_abs_err": max(r["max_abs_err"] for r in rows),
          "ms": top["ms"], "plain_ms": top["plain_ms"],
          "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],

@@ -32,6 +32,7 @@ supervised, so no live position and no metric depends on them.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -236,6 +237,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(fn, key=None):
+    """One launch of ``fn``'s kernel: ``fn.launches`` and, given a shape
+    key, ``fn.launches_by_shape[key]`` go up by one. Under a lock: the
+    training path also launches from its prefetch thread."""
+    with _LAUNCH_LOCK:
+        fn.launches += 1
+        if key is not None:
+            fn.launches_by_shape[key] = fn.launches_by_shape.get(key, 0) + 1
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_valid: Optional[torch.Tensor] = None,
                     causal: bool = False, return_lse: bool = False):
@@ -265,11 +279,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o.data_ptr(), _ptr(lse), b, h, lq, k.shape[2], d, int(causal),
             1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "flash_fwd")
-    flash_attention.launches += 1
+    _count_launch(flash_attention, (b, h, lq, k.shape[2], d,
+                                    kv_valid is not None, bool(causal)))
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+#: Launches by (B, H, Lq, Lk, D, has kv_valid, causal), beside ``launches``.
+flash_attention.launches_by_shape = {}
 
 
 def _bwd_kernel_args(q, k, v, kv_valid, lse, *rows):
@@ -301,7 +318,7 @@ def flash_bwd_dq(q, k, v, kv_valid, causal, o, lse, do):
             dq.data_ptr(), *dims, int(causal), 1.0 / dims[-1] ** 0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count_launch(flash_bwd_dq)
     return dq, delta
 
 
@@ -327,7 +344,7 @@ def flash_bwd_dkv(q, k, v, kv_valid, causal, lse, delta, do):
             dv.data_ptr(), *dims, int(causal), 1.0 / dims[-1] ** 0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count_launch(flash_bwd_dkv)
     return dk, dv
 
 

@@ -2,8 +2,10 @@
 
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the repository
-root (listed in ``.gitignore``). A library is keyed by a hash of its source
-and flags, so an edited source rebuilds and an unchanged one is reused.
+root (listed in ``.gitignore``). A library is keyed by a hash of its source,
+of every header under ``csrc/`` that it includes (``#include "..."``, followed
+recursively) and of the flags, so an edited source or header rebuilds and an
+unchanged one is reused.
 Builds start at first use, never at import; several sources build in
 parallel, one ``nvcc`` each. A failed build raises with nvcc's messages.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,11 +49,30 @@ def _nvcc() -> str:
         "needed to build the kernels in %s" % CSRC_DIR)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes with
+    quotes, directly or through another header, in first-seen order."""
+    todo, seen = [os.path.join(CSRC_DIR, name + ".cu")], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                todo.append(os.path.join(os.path.dirname(path), inc.decode()))
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest[:16]))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
 def build(names: Sequence[str]) -> None:

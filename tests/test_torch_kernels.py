@@ -7,11 +7,17 @@ versions. Imports no JAX, so it runs on the machine with the card too:
 (``--noconftest``: the suite's conftest sets up JAX.) Here, without a
 card, the CUDA cases skip.
 """
+import os
+import shutil
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from devqa_tpu_torch.ops import attention as ta
+from devqa_tpu_torch.ops import build
 
 
 def _inputs(b, h, lq, lk, d, mask, seed=0):
@@ -29,6 +35,13 @@ def _inputs(b, h, lq, lk, d, mask, seed=0):
     elif mask == "deadrow":  # batch row 0 has no live key at all
         kv = rng.random((b, lk)) < 0.6
         kv[0] = False
+    elif mask == "slot":  # a 32-key vision slot live on even rows, text a prefix
+        lens = rng.integers(8, lk - 32 + 1, size=b)
+        kv = np.concatenate([np.repeat((np.arange(b) % 2 == 0)[:, None], 32, 1),
+                             np.arange(lk - 32)[None, :] < lens[:, None]], 1)
+    elif mask == "hole":  # keys 64-127, a whole key tile, dead between live
+        kv = np.ones((b, lk), dtype=bool)
+        kv[:, 64:128] = False
     else:
         raise ValueError(mask)
     kv = None if kv is None else torch.from_numpy(kv.astype(np.int32))
@@ -123,6 +136,18 @@ def cuda_device():
     (1, 2, 40, 97, 64, "prefix", True),
     (3, 2, 24, 9, 80, "none", True),     # Lq > Lk: early rows see no key
     (2, 4, 257, 257, 88, "none", False),
+    # the load ring wraps several times
+    (2, 4, 64, 1000, 88, "none", False),
+    (1, 2, 128, 1000, 80, "prefix", True),
+    (2, 4, 70, 192, 80, "hole", False),  # a whole key tile masked
+    (3, 4, 1, 257, 80, "prefix", True),  # Lq = 1
+    (3, 4, 40, 1, 88, "none", True),     # Lk = 1: only the last row sees it
+    (2, 2, 1, 1, 64, "none", False),
+    (300, 32, 64, 64, 80, "slot", True),  # many blocks per SM
+    # one key tile at each head dim
+    (8, 12, 64, 64, 64, "deadrow", True),
+    (8, 12, 64, 64, 80, "deadrow", True),
+    (8, 12, 64, 64, 88, "deadrow", True),
 ])
 def test_kernel_matches_plain_version(cuda_device, b, h, lq, lk, d, mask,
                                       causal):
@@ -147,6 +172,24 @@ def test_kernel_matches_plain_version(cuda_device, b, h, lq, lk, d, mask,
     o2 = ta.flash_attention(q, k, v, kv, causal=causal)
     torch.cuda.synchronize()
     assert torch.equal(o2, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 88])
+def test_masked_key_tile_leaves_state_unchanged(cuda_device, d):
+    """A key tile whose keys are all masked leaves m, l and O exactly as
+    they were: o and lse are bitwise those of the same call with that
+    tile's keys removed."""
+    q, k, v, kv = _inputs(2, 3, 70, 192, d, "hole")
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    kv = kv.to(cuda_device)
+    keep = torch.cat([torch.arange(64), torch.arange(128, 192)]).to(cuda_device)
+    o, lse = ta.flash_attention(q, k, v, kv, return_lse=True)
+    o2, lse2 = ta.flash_attention(q, k[:, :, keep].contiguous(),
+                                  v[:, :, keep].contiguous(),
+                                  kv[:, keep].contiguous(), return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
@@ -228,3 +271,46 @@ def test_function_gradients_on_the_card(cuda_device):
     for got, r in zip(leaves, ref):
         tol = 2e-2 * r.grad.abs().max().item()
         assert (got.grad.float() - r.grad).abs().max().item() <= tol
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel's library is keyed by its source and every header it
+    includes, directly or through another header: editing one rebuilds
+    the sources that include it and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    assert [os.path.basename(p) for p in build.source_files("flash_fwd")] \
+        == ["flash_fwd.cu", "tile_mma.cuh"]
+    fwd, bwd = build.library_path("flash_fwd"), build.library_path("flash_bwd")
+    header = csrc / "tile_mma.cuh"
+    header.write_text(header.read_text() + '\n#include "extra.cuh"\n')
+    (csrc / "extra.cuh").write_text("// one\n")
+    fwd2 = build.library_path("flash_fwd")
+    assert fwd2 != fwd and build.library_path("flash_bwd") == bwd
+    (csrc / "extra.cuh").write_text("// two\n")
+    assert build.library_path("flash_fwd") not in (fwd, fwd2)
+
+
+def test_launch_counts_survive_threads():
+    """The launch counters are bumped from the training path's prefetch
+    thread too: no increment is lost under contention."""
+    def fn():
+        pass
+
+    fn.launches, fn.launches_by_shape = 0, {}
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            ta._count_launch(fn, ("shape",)) for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert fn.launches == 32000
+    assert fn.launches_by_shape == {("shape",): 32000}
