@@ -1,13 +1,19 @@
-"""Vision transformer: the BLIP-2 EVA ViT-g tower (counterpart of ``devqa_tpu/core/vit.py``).
+"""Vision transformers (counterpart of ``devqa_tpu/core/vit.py``).
 
-Fused qkv, post-LayerNorm, exact GELU, 224px/14 → 257 tokens (class token
-+ 256 patches). Patch embedding is patchify + one matmul (the stride-P
-convolution). Parameters are a dict; ``layers`` is a list of per-layer
-dicts (the JAX package stacks them along a leading axis).
+- BLIP-2's EVA ViT-g: fused qkv, post-LayerNorm, exact GELU, 224px/14 →
+  257 tokens (class token + 256 patches).
+- LLaVA-1.5's CLIP ViT-L/14-336: split q/k/v, embedding pre-LayerNorm,
+  quick GELU, 336px/14 → 577 tokens; LLaVA reads the penultimate layer's
+  hidden states without the post-LayerNorm (``stop_at_layer``).
+
+Patch embedding is patchify + one matmul (the stride-P convolution).
+Parameters are a dict; ``layers`` is a list of per-layer dicts (the JAX
+package stacks them along a leading axis).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,6 +52,13 @@ def blip2_vit_config() -> ViTConfig:
                      pre_layernorm=False)
 
 
+def clip_vit_l_336_config() -> ViTConfig:
+    """336/14 → 577 tokens, d 1024, 24 layers, 16 heads of dim 64."""
+    return ViTConfig(image_size=336, patch_size=14, d_model=1024, n_layers=24,
+                     n_heads=16, d_ffn=4096, activation="quick_gelu",
+                     fused_qkv=False, pre_layernorm=True)
+
+
 def _normal(shape, generator, dtype, device, scale=0.02):
     return torch.randn(shape, generator=generator, dtype=dtype,
                        device=device).mul_(scale)
@@ -64,18 +77,19 @@ def _dense(d_in, d_out, generator, dtype, device):
 def init_vit_params(cfg: ViTConfig, generator: torch.Generator,
                     dtype=torch.float32, device="cuda"):
     """Same shapes and scales as the JAX init (normal × 0.02, LN ones/zeros)."""
-    if not cfg.fused_qkv:
-        raise NotImplementedError("split-qkv towers (CLIP) are not ported yet")
     d, f = cfg.d_model, cfg.d_ffn
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": _ln(d, dtype, device), "ln2": _ln(d, dtype, device),
-            "qkv": _dense(d, 3 * d, generator, dtype, device),
-            "o": _dense(d, d, generator, dtype, device),
-            "fc1": _dense(d, f, generator, dtype, device),
-            "fc2": _dense(f, d, generator, dtype, device),
-        })
+        p = {"ln1": _ln(d, dtype, device), "ln2": _ln(d, dtype, device)}
+        if cfg.fused_qkv:
+            p["qkv"] = _dense(d, 3 * d, generator, dtype, device)
+        else:
+            for name in ("q", "k", "v"):
+                p[name] = _dense(d, d, generator, dtype, device)
+        p.update(o=_dense(d, d, generator, dtype, device),
+                 fc1=_dense(d, f, generator, dtype, device),
+                 fc2=_dense(f, d, generator, dtype, device))
+        layers.append(p)
     params = {
         "patch_embed": _dense(3 * cfg.patch_size ** 2, d, generator, dtype,
                               device),
@@ -113,7 +127,10 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
 def _vit_layer(p, cfg: ViTConfig, h: torch.Tensor) -> torch.Tensor:
     act = ACTIVATIONS[cfg.activation]
     x = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"], cfg.norm_eps)
-    q, k, v = linear(x, p["qkv"]["w"], p["qkv"]["b"]).chunk(3, dim=-1)
+    if cfg.fused_qkv:
+        q, k, v = linear(x, p["qkv"]["w"], p["qkv"]["b"]).chunk(3, dim=-1)
+    else:
+        q, k, v = (linear(x, p[n]["w"], p[n]["b"]) for n in ("q", "k", "v"))
     o = multihead_attention(_split_heads(q, cfg.n_heads),
                             _split_heads(k, cfg.n_heads),
                             _split_heads(v, cfg.n_heads))
@@ -123,8 +140,15 @@ def _vit_layer(p, cfg: ViTConfig, h: torch.Tensor) -> torch.Tensor:
                       p["fc2"]["w"], p["fc2"]["b"])
 
 
-def vit_forward(params, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tensor:
-    """Normalized pixels [B, H, W, 3] → [B, n_tokens, d] (post-LN)."""
+def vit_forward(params, cfg: ViTConfig, pixels: torch.Tensor, *,
+                stop_at_layer: Optional[int] = None,
+                apply_post_ln: bool = True) -> torch.Tensor:
+    """Normalized pixels [B, H, W, 3] → [B, n_tokens, d].
+
+    ``stop_at_layer=k`` returns the hidden states after layer k, without
+    later layers or the post-LN (LLaVA's ``hidden_states[-2]`` is
+    ``stop_at_layer=n_layers - 1``); otherwise the post-LN applies unless
+    ``apply_post_ln`` is False."""
     # The tower runs in the parameter dtype: the pixels arrive in float32.
     x = patchify(pixels, cfg.patch_size).to(params["patch_embed"]["w"].dtype)
     h = linear(x, params["patch_embed"]["w"], params["patch_embed"]["b"])
@@ -135,7 +159,10 @@ def vit_forward(params, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tensor:
     if cfg.pre_layernorm and "pre_ln" in params:
         h = layer_norm(h, params["pre_ln"]["scale"], params["pre_ln"]["bias"],
                        cfg.norm_eps)
-    for p in params["layers"]:
+    hi = cfg.n_layers if stop_at_layer is None else stop_at_layer
+    for p in params["layers"][:hi]:
         h = _vit_layer(p, cfg, h)
-    return layer_norm(h, params["post_ln"]["scale"], params["post_ln"]["bias"],
-                      cfg.norm_eps)
+    if apply_post_ln and stop_at_layer is None:
+        h = layer_norm(h, params["post_ln"]["scale"],
+                       params["post_ln"]["bias"], cfg.norm_eps)
+    return h

@@ -1,12 +1,15 @@
-"""BLIP-2-OPT composition (counterpart of ``devqa_tpu/core/vllm.py``, Q-Former bridge only).
+"""BLIP-2-OPT and LLaVA-1.5 compositions: the Q-Former and MLP bridges
+(counterpart of ``devqa_tpu/core/vllm.py``).
 
 One batched layout for image and no-image rows:
 
     [ text[:, :p] | vision slot block (V tokens) | text[:, p:] ]
 
-BLIP-2 puts the 32 Q-Former tokens at p = 0. Rows without an image keep
-the slot block but mask it off in ``kv_valid``; mask-derived positions make
-that equivalent to the shorter no-image sequence.
+BLIP-2 puts the 32 Q-Former tokens at p = 0; LLaVA puts its 576 CLIP
+tokens (penultimate layer, class token dropped, through a two-layer MLP)
+at p = 1, after BOS. Rows without an image keep the slot block but mask
+it off in ``kv_valid``; mask-derived positions make that equivalent to the
+shorter no-image sequence.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..ops.layers import linear
+from ..ops.layers import gelu_exact, linear, matmul_f32
 from ..utils.config import BaseConfig
 from . import decoder as dec
 from . import qformer as qf
@@ -34,6 +37,10 @@ class VLLMConfig(BaseConfig):
         default_factory=qf.blip2_qformer_config)
     decoder: dec.DecoderConfig = dataclasses.field(
         default_factory=dec.opt_2_7b_config)
+    vit_feature_layer: Optional[int] = None  # LLaVA: the tower's layer read
+    # The image's special token in prompts (LLaVA's "<image>"), stripped
+    # before tokenizing: the slot layout stands for it.
+    img_special_token: Optional[str] = None
 
     @property
     def vt_range(self) -> Tuple[int, int]:
@@ -48,10 +55,19 @@ def blip2_opt_2_7b_config() -> VLLMConfig:
         qformer=qf.blip2_qformer_config(), decoder=dec.opt_2_7b_config())
 
 
+def llava_v15_7b_config() -> VLLMConfig:
+    """CLIP ViT-L/14-336 (penultimate layer) → MLP → Vicuna-7b, with the
+    576 vision tokens after BOS."""
+    vit_cfg = vit_mod.clip_vit_l_336_config()
+    return VLLMConfig(
+        name="llava-v1.5-7b", bridge="mlp", img_slot_pos=1, n_img_tokens=576,
+        vit=vit_cfg, qformer=None, decoder=dec.vicuna_7b_config(),
+        vit_feature_layer=vit_cfg.n_layers - 1, img_special_token="<image>")
+
+
 def tiny_vllm_config(arch: str = "opt", img_slot_pos: int = 0) -> VLLMConfig:
-    """The JAX package's tiny test geometry (OPT only)."""
-    if arch != "opt":
-        raise NotImplementedError("only the OPT tiny config is ported")
+    """The JAX package's tiny test geometry (Q-Former bridge; an OPT or a
+    LLaMA decoder)."""
     vit_cfg = vit_mod.ViTConfig(
         image_size=16, patch_size=4, d_model=32, n_layers=2, n_heads=2,
         d_ffn=64, fused_qkv=True, pre_layernorm=True)
@@ -59,18 +75,19 @@ def tiny_vllm_config(arch: str = "opt", img_slot_pos: int = 0) -> VLLMConfig:
         d_model=24, n_layers=2, n_heads=2, d_ffn=48, n_query_tokens=4,
         encoder_width=32, cross_attention_frequency=2)
     dcfg = dec.DecoderConfig(
-        arch="opt", vocab_size=512, d_model=32, n_layers=4, n_heads=2,
-        d_ffn=64, max_positions=128, activation="relu",
-        tie_word_embeddings=True)
-    return VLLMConfig(name="tiny-opt", bridge="qformer",
+        arch=arch, vocab_size=512, d_model=32, n_layers=4, n_heads=2,
+        d_ffn=64, max_positions=128,
+        activation="relu" if arch == "opt" else "silu",
+        tie_word_embeddings=(arch == "opt"))
+    return VLLMConfig(name="tiny-%s" % arch, bridge="qformer",
                       img_slot_pos=img_slot_pos, n_img_tokens=4, vit=vit_cfg,
                       qformer=qf_cfg, decoder=dcfg)
 
 
 def _check_bridge(cfg: VLLMConfig) -> None:
-    if cfg.bridge != "qformer":
-        raise NotImplementedError("bridge %r is not ported; only the "
-                                  "Q-Former bridge is" % cfg.bridge)
+    if cfg.bridge not in ("qformer", "mlp"):
+        raise NotImplementedError("bridge %r is not ported; the Q-Former "
+                                  "and MLP bridges are" % cfg.bridge)
 
 
 def init_vllm_params(cfg: VLLMConfig, generator: torch.Generator,
@@ -79,24 +96,41 @@ def init_vllm_params(cfg: VLLMConfig, generator: torch.Generator,
     generator must live on ``device``."""
     _check_bridge(cfg)
     d_llm = cfg.decoder.d_model
-    return {
+    params = {
         "vit": vit_mod.init_vit_params(cfg.vit, generator, dtype, device),
         "decoder": dec.init_decoder_params(cfg.decoder, generator, dtype,
                                            device),
-        "qformer": qf.init_qformer_params(cfg.qformer, generator, dtype,
-                                          device),
-        "projection": vit_mod._dense(cfg.qformer.d_model, d_llm, generator,
-                                     dtype, device),
     }
+    if cfg.bridge == "qformer":
+        params["qformer"] = qf.init_qformer_params(cfg.qformer, generator,
+                                                   dtype, device)
+        params["projection"] = vit_mod._dense(cfg.qformer.d_model, d_llm,
+                                              generator, dtype, device)
+    else:
+        params["projection"] = {
+            "fc1": vit_mod._dense(cfg.vit.d_model, d_llm, generator, dtype,
+                                  device),
+            "fc2": vit_mod._dense(d_llm, d_llm, generator, dtype, device)}
+    return params
 
 
 def encode_image(params, cfg: VLLMConfig, pixels: torch.Tensor) -> torch.Tensor:
-    """Normalized pixels [B, S, S, 3] → vision tokens [B, n_img_tokens, d_llm]:
-    ViT → Q-Former → linear projection."""
+    """Normalized pixels [B, S, S, 3] → vision tokens [B, V, d_llm].
+
+    BLIP-2: ViT → Q-Former → linear projection. LLaVA: the ViT's hidden
+    states at ``vit_feature_layer`` (no post-LN), class token dropped →
+    fc1 → exact GELU (in float32, then cast to the tower's dtype) → fc2."""
     _check_bridge(cfg)
-    feats = vit_mod.vit_forward(params["vit"], cfg.vit, pixels)
-    q = qf.qformer_forward(params["qformer"], cfg.qformer, feats)
-    return linear(q, params["projection"]["w"], params["projection"]["b"])
+    if cfg.bridge == "qformer":
+        feats = vit_mod.vit_forward(params["vit"], cfg.vit, pixels)
+        q = qf.qformer_forward(params["qformer"], cfg.qformer, feats)
+        return linear(q, params["projection"]["w"], params["projection"]["b"])
+    feats = vit_mod.vit_forward(params["vit"], cfg.vit, pixels,
+                                stop_at_layer=cfg.vit_feature_layer,
+                                apply_post_ln=False)[:, 1:]
+    p = params["projection"]
+    h = gelu_exact(matmul_f32(feats, p["fc1"]["w"]) + p["fc1"]["b"])
+    return linear(h.to(feats.dtype), p["fc2"]["w"], p["fc2"]["b"])
 
 
 def assemble_embeds(params, cfg: VLLMConfig, input_ids: torch.Tensor,

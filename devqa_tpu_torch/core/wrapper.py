@@ -1,4 +1,4 @@
-"""TorchVLLM — the stateful host-side wrapper around a BLIP-2 parameter dict
+"""TorchVLLM — the stateful host-side wrapper around a VLLM parameter dict
 (counterpart of ``devqa_tpu/core/wrapper.py``'s ``JaxVLLM``).
 
 It owns params + tokenizer + image provider and gives editors and the
@@ -227,10 +227,23 @@ class TorchVLLM:
 
     # ---------------- queries ----------------
 
+    def _prompt_text(self, prompt: str, has_image: bool) -> str:
+        """The auto-add-image-token rule: a model with an image special
+        token gets ``"<tok>\\n"`` before the prompt when an image is present.
+        The token itself is stripped (the slot layout stands for it) and
+        the ``"\\n"`` kept."""
+        ist = self.cfg.img_special_token
+        if ist is None:
+            return prompt
+        prompt = prompt.replace(ist + "\n", "").replace(ist, "")
+        return "\n" + prompt if has_image else prompt
+
     def tokenize_queries(self, prompts: Sequence[str],
                          image_paths: Sequence[Optional[str]],
                          targets: Sequence[str]) -> List[SampleTokens]:
-        return [tokenize_sample(self.tokenizer, p, t, image_id=img)
+        return [tokenize_sample(self.tokenizer,
+                                self._prompt_text(p, img is not None), t,
+                                image_id=img)
                 for p, img, t in zip(prompts, image_paths, targets)]
 
     def _batch(self, prompts, image_paths, targets):

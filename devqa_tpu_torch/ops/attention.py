@@ -39,8 +39,10 @@ import torch
 
 NEG_INF = -1e30
 
-#: Padded head dims the kernel is instantiated for (head dim rounded up to 16).
-_KERNEL_PADDED_DIMS = (64, 80, 96)
+#: Padded head dims (head dim rounded up to 16) the forward kernel is
+#: instantiated for, and the backward kernels.
+_FWD_PADDED_DIMS = (64, 80, 96, 128)
+_BWD_PADDED_DIMS = (64, 80, 96)
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,9 +158,15 @@ def _check_kernel_args(q, k, v, kv_valid):
     check_kernel_layout(q, k, v, kv_valid)
 
 
+def _check_head_dim(d, dims, what):
+    if d % 8 or (d + 15) // 16 * 16 not in dims:
+        raise ValueError("%s: head dim %d not supported (a multiple of 8 "
+                         "padding to one of %s)" % (what, d, dims))
+
+
 def check_kernel_layout(q, k, v, kv_valid=None):
     """Raise unless (q, k, v, kv_valid) have the dtypes, shapes, head dim,
-    contiguity and alignment the CUDA kernels take (the device aside)."""
+    contiguity and alignment the forward kernel takes (the device aside)."""
     tensors = (q, k, v) if kv_valid is None else (q, k, v, kv_valid)
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError("flash_attention: the CUDA kernel takes bfloat16 "
@@ -172,10 +180,7 @@ def check_kernel_layout(q, k, v, kv_valid=None):
     if lq == 0 or k.shape[2] == 0 or b * h == 0:
         raise ValueError("flash_attention: empty input %s / %s"
                          % (tuple(q.shape), tuple(k.shape)))
-    if d % 8 or (d + 15) // 16 * 16 not in _KERNEL_PADDED_DIMS:
-        raise ValueError("flash_attention: head dim %d not supported (a "
-                         "multiple of 8 padding to one of %s)"
-                         % (d, _KERNEL_PADDED_DIMS))
+    _check_head_dim(d, _FWD_PADDED_DIMS, "flash_attention")
     if kv_valid is not None and (kv_valid.dtype != torch.int32
                                  or kv_valid.shape != (b, k.shape[2])):
         raise ValueError("flash_attention: kv_valid must be int32 [B, Lk]")
@@ -187,9 +192,10 @@ def check_kernel_layout(q, k, v, kv_valid=None):
 
 def check_bwd_layout(q, k, v, kv_valid, lse, *rows):
     """:func:`check_kernel_layout` plus what the backward kernels take:
-    lse float32 [B, H, Lq] and each of ``rows`` (o, dO) bf16 like q, all
-    contiguous."""
+    their own head dims (no 128 yet), lse float32 [B, H, Lq] and each of
+    ``rows`` (o, dO) bf16 like q, all contiguous."""
     check_kernel_layout(q, k, v, kv_valid)
+    _check_head_dim(q.shape[3], _BWD_PADDED_DIMS, "flash_attention_bwd")
     for t in rows:
         if t.dtype != torch.bfloat16 or t.shape != q.shape:
             raise ValueError("flash_attention_bwd: o and dO must be bfloat16 "
@@ -369,6 +375,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, causal):
+        # Off the CPU, refuse a head dim the backward kernels lack before
+        # the forward launches, not after it.
+        if q.device.type != "cpu":
+            _check_head_dim(q.shape[3], _BWD_PADDED_DIMS,
+                            "flash_attention_bwd")
         o, lse = flash_attention(q, k, v, kv_valid, causal, return_lse=True)
         ctx.save_for_backward(q, k, v, kv_valid, o, lse)
         ctx.causal = causal

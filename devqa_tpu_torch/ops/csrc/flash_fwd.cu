@@ -12,17 +12,21 @@
 //
 // Layout: q [B, H, Lq, D], k / v [B, H, Lk, D], o like q, all contiguous
 // and 16-byte aligned bf16; kv_valid int32 [B, Lk] or null. D is a
-// multiple of 8 padding to DP = round_up(D, 16) in {64, 80, 96}: the
-// path's head dims are 64 (Q-Former), 80 (OPT) and 88 (ViT, DP 96).
+// multiple of 8 padding to DP = round_up(D, 16) in {64, 80, 96, 128}: the
+// paths' head dims are 64 (Q-Former, CLIP-L), 80 (OPT), 88 (EVA ViT, DP
+// 96) and 128 (Vicuna).
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): bytes, at
 // every path shape. The OPT post pass (120 x 32 heads x 64 tokens, D 80)
 // moves q + k + v + o = 157 MB (47 us) for 2.7 GFLOP of products (3 us);
 // the ViT (8 images x 16 heads x 257 tokens, D 88) moves 23 MB (7 us)
-// for 2.7 GFLOP. So what the card lacks is bytes in flight and latency
-// hidden, not tensor-core rate. The first version of this kernel (WMMA,
-// accumulators in shared memory) ran 4-26x its bound. This design, by
-// the causes it removes:
+// for 2.7 GFLOP. LLaVA's decoder rows (30 x 32 heads x 640 tokens, D 128)
+// move 629 MB (188 us) for about 1e11 FLOP of live products (100 us), and
+// its CLIP-L tower (8 x 16 heads x 577 tokens, D 64) 38 MB (11 us) for
+// 1.1e10 (11 us): closer to balanced, still bytes first. So what the card
+// lacks is bytes in flight and latency hidden, not tensor-core rate. The
+// first version of this kernel (WMMA, accumulators in shared memory) ran
+// 4-26x its bound. This design, by the causes it removes:
 //
 // 1. Accumulators in registers. Each of a block's 4 warps owns 16 query
 //    rows and runs mma.sync.m16n8k16 (bf16 -> f32) fed by ldmatrix (.trans
@@ -63,24 +67,31 @@
 //    is written once per row.
 //
 // Shared memory per block (row stride DP + 8 bf16, so the 8 rows of an
-// ldmatrix fall in distinct banks): Q 64 x (DP+8) x 2 bytes, and per
+// ldmatrix fall in distinct banks: at DP 128 the stride is 272 bytes, 68
+// words, and 8 rows start 4 banks apart): Q 64 x (DP+8) x 2 bytes, and per
 // stage K and V 64 x (DP+8) x 2 bytes each plus 64 mask ints. Bytes for
 // one stage (Lk <= 64) / two stages:
-//   DP 64: 27,904 / 46,592;  DP 80: 34,048 / 56,832;  DP 96: 40,192 / 67,072.
+//   DP 64: 27,904 / 46,592;  DP 80: 34,048 / 56,832;  DP 96: 40,192 / 67,072;
+//   DP 128: 52,480 / 87,552.
 // __launch_bounds__(128, 3) caps a thread at 168 registers, so every
-// instantiation holds 3 blocks (12 warps) per SM; shared memory alone
-// would allow 8 / 4, 6 / 4 and 5 / 3. ptxas (sm_90a, CUDA 12.8, -O3) and
+// instantiation up to DP 96 holds 3 blocks (12 warps) per SM; shared
+// memory alone would allow 8 / 4, 6 / 4 and 5 / 3. DP 128 keeps O (64
+// registers a thread), Q's fragments (32) and S (32) in registers, about
+// 200 with addresses and softmax state, and takes __launch_bounds__(128,
+// 2): 255 registers at most, 2 blocks per SM, which two stages of shared
+// memory (2 x 87,552 bytes) also allow. ptxas (sm_90a, CUDA 12.8, -O3) and
 // the CUDA runtime on an H100 80GB HBM3, registers / spill bytes a thread,
 // <DP, mask, causal>; static shared memory 0 everywhere (the ring is
 // dynamic, bytes above):
 //   < 64,0,0> 137/0   < 64,0,1> 150/0   < 64,1,0> 148/0   < 64,1,1> 154/0
 //   < 80,0,0> 149/0   < 80,0,1> 164/0   < 80,1,0> 160/0   < 80,1,1> 166/0
 //   < 96,0,0> 161/0   < 96,0,1> 168/12  < 96,1,0> 160/0   < 96,1,1> 168/0
+//   <128,0,0> 192/0   <128,0,1> 214/0   <128,1,0> 196/0   <128,1,1> 218/0
+// (DP 128: 2 resident blocks per SM, 52,480 / 87,552 bytes of dynamic
+// shared memory, as the runtime reports.)
 // The 12 bytes are in the causal, mask-free DP 96 instantiation, which no
-// path launches. chip_smoke.py's build line prints these for every build.
-// DP 128 (LLaVA's head dim, not instantiated): 52,480 / 87,552 bytes, 2
-// blocks by shared memory; O 64 + Q 32 + S 32 registers a thread need
-// about 200, so it takes __launch_bounds__(128, 2).
+// path launches. chip_smoke.py's build line prints these for every build,
+// DP 128's among them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +107,10 @@ constexpr int BK = 64;            // keys per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int STAGES = 2;         // K/V tiles in the shared-memory ring
+
+// Resident blocks per SM the register budget is set for (see the note).
+template <int DP>
+constexpr int min_blocks() { return DP <= 96 ? 3 : 2; }
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -168,7 +183,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[DP / 8][4], const uint32_t 
 }
 
 template <int DP, bool HAS_MASK, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS, 3)
+__global__ void __launch_bounds__(NTHREADS, min_blocks<DP>())
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ kv_valid,
                  bf16* __restrict__ o, float* __restrict__ lse,
@@ -466,6 +481,7 @@ extern "C" int devqa_flash_fwd_info(int D, int has_mask, int causal, int Lk, int
     case 64: return info_dp<64>(has_mask, causal, Lk, out);
     case 80: return info_dp<80>(has_mask, causal, Lk, out);
     case 96: return info_dp<96>(has_mask, causal, Lk, out);
+    case 128: return info_dp<128>(has_mask, causal, Lk, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -487,6 +503,7 @@ extern "C" int devqa_flash_fwd(const void* q, const void* k, const void* v, cons
     case 64: return dispatch<64>(qp, kp, vp, mp, op, lp, B, H, Lq, Lk, D, causal, scale, st);
     case 80: return dispatch<80>(qp, kp, vp, mp, op, lp, B, H, Lq, Lk, D, causal, scale, st);
     case 96: return dispatch<96>(qp, kp, vp, mp, op, lp, B, H, Lq, Lk, D, causal, scale, st);
+    case 128: return dispatch<128>(qp, kp, vp, mp, op, lp, B, H, Lq, Lk, D, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

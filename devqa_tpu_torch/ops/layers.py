@@ -6,7 +6,8 @@ numerics contract:
 - a matmul runs in the promoted type of its operands (bf16 × f32 → f32, as
   ``jnp.dot`` promotes), accumulates in float32 and is cast once to the
   input's dtype; a bias joins the float32 accumulator before that cast;
-- LayerNorm is computed in float32 and cast back to the input's dtype.
+- LayerNorm and RMSNorm are computed in float32 and cast back to the
+  input's dtype.
 
 Linear weights keep the JAX layout ``[in, out]``.
 """
@@ -49,12 +50,27 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """LLaMA's RMSNorm (no mean, no bias) in float32, cast to x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """erf-based GELU (``jax.nn.gelu(approximate=False)``)."""
     return F.gelu(x, approximate="none")
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's ``x * sigmoid(1.702 x)``."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 ACTIVATIONS = {
     "relu": torch.relu,
     "gelu": gelu_exact,
+    "silu": F.silu,
+    "quick_gelu": quick_gelu,
 }

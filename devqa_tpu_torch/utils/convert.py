@@ -5,7 +5,10 @@ as numpy arrays (``jax.tree.map(np.asarray, params)``), these functions
 build the port's dicts of tensors, so both packages compute with the same
 weights. Weights keep the ``[in, out]`` layout; the JAX package's
 scan-stacked ``layers`` leaves (ViT, decoder) become lists of per-layer
-dicts. The Q-Former's layers are already a list.
+dicts, whatever they hold (fused or split q/k/v; OPT's fc1/fc2 or LLaMA's
+gate/up/down). The Q-Former's layers are already a list; the other trees
+(the projection, be it BLIP-2's linear or LLaVA's MLP, ``lm_head``) keep
+their keys.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from ..core.vllm import VLLMConfig
+from ..core.decoder import _check_arch
+from ..core.vllm import VLLMConfig, _check_bridge
 
 
 def _tensors(tree, dtype, device):
@@ -39,8 +43,8 @@ def _unstack(tree, n: int) -> List[Dict[str, Any]]:
 def params_from_jax(np_tree, cfg: VLLMConfig, dtype=None, device="cuda"):
     """The JAX ``init_vllm_params`` tree (numpy leaves) → the port's VLLM
     params on ``device`` (floating leaves cast to ``dtype`` if given)."""
-    if cfg.bridge != "qformer":
-        raise NotImplementedError("only the Q-Former bridge is ported")
+    _check_bridge(cfg)
+    _check_arch(cfg.decoder)
     out = {}
     for name, sub in np_tree.items():
         sub = dict(sub) if isinstance(sub, dict) else sub

@@ -78,6 +78,8 @@ def test_xla_attention_matches_jax(b, h, lq, lk, d, mask, causal):
 @pytest.mark.parametrize("b,h,lq,lk,d,mask,causal", CASES + [
     # Lq > Lk causal: the first rows see no key at all.
     pytest.param(1, 2, 12, 5, 8, "none", True, id="causal-lq>lk-dead"),
+    # LLaVA's Vicuna head dim, a ragged causal Lq < Lk with a dead row
+    pytest.param(2, 2, 20, 70, 128, "deadrow", True, id="d128-causal"),
 ])
 def test_flash_ref_matches_pallas_interpret(b, h, lq, lk, d, mask, causal):
     q, k, v, kv = _inputs(b, h, lq, lk, d, mask)

@@ -39,6 +39,11 @@ def _inputs(b, h, lq, lk, d, mask, seed=0):
         lens = rng.integers(8, lk - 32 + 1, size=b)
         kv = np.concatenate([np.repeat((np.arange(b) % 2 == 0)[:, None], 32, 1),
                              np.arange(lk - 32)[None, :] < lens[:, None]], 1)
+    elif mask == "llava":  # [BOS | 576-key slot | text]: slot on even rows
+        lens = rng.integers(8, lk - 577 + 1, size=b)
+        slot = np.repeat((np.arange(b) % 2 == 0)[:, None], 576, 1)
+        kv = np.concatenate([np.ones((b, 1), dtype=bool), slot,
+                             np.arange(lk - 577)[None, :] < lens[:, None]], 1)
     elif mask == "hole":  # keys 64-127, a whole key tile, dead between live
         kv = np.ones((b, lk), dtype=bool)
         kv[:, 64:128] = False
@@ -115,6 +120,27 @@ def test_kernel_layout_refusals(shape, dtype, kv_dtype, match):
         ta.check_kernel_layout(q, q, q, kv)
 
 
+@pytest.mark.parametrize("d", [120, 128])
+def test_head_dim_128_is_forward_only(d):
+    """Head dims padding to 128 (LLaVA's Vicuna) have a forward kernel and
+    no backward one: the forward check takes them, the backward check and
+    a gradient through the kernel are refused before anything launches."""
+    q = torch.zeros((2, 2, 8, d), dtype=torch.bfloat16)
+    kv = torch.ones((2, 8), dtype=torch.int32)
+    lse = torch.zeros((2, 2, 8))
+    ta.check_kernel_layout(q, q, q, kv)
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dim"):
+        ta.check_bwd_layout(q, q, q, kv, lse, q, q)
+    ta.check_bwd_layout(*(t[..., :80].contiguous() for t in (q, q, q)), kv,
+                        lse, *(q[..., :80].contiguous(),) * 2)
+    g = torch.zeros((1, 1, 8, d), dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    n0 = ta.flash_attention.launches
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dim"):
+        ta.flash_attention(g, g.detach(), g.detach())
+    assert ta.flash_attention.launches == n0
+
+
 def test_kernel_layout_refuses_a_strided_view():
     q = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -148,6 +174,15 @@ def cuda_device():
     (8, 12, 64, 64, 64, "deadrow", True),
     (8, 12, 64, 64, 80, "deadrow", True),
     (8, 12, 64, 64, 88, "deadrow", True),
+    # head dims 120 and 128 (LLaVA's Vicuna: DP 128)
+    (8, 12, 64, 64, 128, "deadrow", True),
+    (2, 3, 70, 70, 120, "nonprefix", True),
+    (2, 2, 33, 130, 128, "deadrow", False),
+    (1, 2, 40, 97, 120, "prefix", True),
+    (3, 4, 1, 257, 128, "prefix", True),     # Lq = 1
+    (3, 4, 40, 1, 128, "none", True),        # Lk = 1
+    (2, 4, 64, 1000, 128, "none", False),    # the load ring wraps
+    (4, 8, 640, 640, 128, "llava", True),    # LLaVA's rows, slot after BOS
 ])
 def test_kernel_matches_plain_version(cuda_device, b, h, lq, lk, d, mask,
                                       causal):
@@ -175,7 +210,7 @@ def test_kernel_matches_plain_version(cuda_device, b, h, lq, lk, d, mask,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 88])
+@pytest.mark.parametrize("d", [64, 88, 120, 128])
 def test_masked_key_tile_leaves_state_unchanged(cuda_device, d):
     """A key tile whose keys are all masked leaves m, l and O exactly as
     they were: o and lse are bitwise those of the same call with that
