@@ -326,7 +326,6 @@ class LiveEditTrainingMixin:
     The train state is ``{"params": tree, "opt_state": {"count", "mu",
     "nu"}}``: Adam's step count and first and second moments keyed like
     the parameters, as optax's ``ScaleByAdamState`` holds them."""
-
     # ---- host-side batch organization (the prefetch thread) ----
 
     def organize_batch_data(self, cases):
@@ -420,10 +419,20 @@ class LiveEditTrainingMixin:
 
     # ---- the loss ----
 
-    def train_loss(self, lp, batch):
+    def prefix_reps(self, batch):
+        """The frozen prefix (layers ``0..edit_layer_i``) over the batch's
+        rows, without gradient → [rows, L, d]."""
+        with torch.no_grad():
+            return dec.decoder_forward(
+                self.vllm.params["decoder"], self.vllm.cfg.decoder,
+                batch["embeds"], batch["kv_valid"], lo=0,
+                hi=self.cfg.edit_layer_i + 1)
+
+    def train_loss(self, lp, batch, reps=None):
         """The meta-training loss of LiveEdit parameters ``lp`` on an
         organized batch → (loss, logs), scalar tensors. Differentiable in
-        ``lp`` only."""
+        ``lp`` only. ``reps``: the batch's :meth:`prefix_reps`, if already
+        computed."""
         cfg = self.cfg
         vcfg = self.vllm.cfg
         dparams = self.vllm.params["decoder"]
@@ -436,9 +445,8 @@ class LiveEditTrainingMixin:
         vis_m, q_m, ans_m, _ = span_masks(kv, vcfg.vt_range,
                                           batch["query_ends"])
         # The frozen prefix: representations after the edit layer.
-        with torch.no_grad():
-            reps = dec.decoder_forward(dparams, vcfg.decoder, batch["embeds"],
-                                       kv, lo=0, hi=cfg.edit_layer_i + 1)
+        if reps is None:
+            reps = self.prefix_reps(batch)
         dev = reps.device
         rel = torch.arange(B, device=dev)
         k_lo = cfg.edit_layer_i

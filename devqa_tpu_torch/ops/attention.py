@@ -20,9 +20,11 @@ only a prefix); ``causal`` aligns the diagonal at offset ``Lk - Lq``.
 - :class:`FlashAttention` — the ``torch.autograd.Function`` joining them
   (the counterpart of the JAX ``custom_vjp``): its forward saves the lse,
   its backward launches the two backward kernels.
-- :func:`multihead_attention` — the entry every model calls: on CUDA every
-  call, whatever its length, goes through the kernels; on the CPU it is
-  :func:`xla_attention`, as the JAX package runs off the TPU.
+- :func:`multihead_attention` — the entry every model calls: on CUDA a
+  call the kernels take (:func:`kernel_takes`: bf16 at a supported head
+  dim, whatever its length) goes through them, anything else to
+  :func:`xla_attention`, as the JAX package's ``_attention`` does; on the
+  CPU it is :func:`xla_attention`, as the JAX package runs off the TPU.
 
 So on the card a dead query row (one with no live key, such as the vision
 slot of a no-image row) holds zeros and gets zero gradient, where the CPU
@@ -39,10 +41,9 @@ import torch
 
 NEG_INF = -1e30
 
-#: Padded head dims (head dim rounded up to 16) the forward kernel is
-#: instantiated for, and the backward kernels.
-_FWD_PADDED_DIMS = (64, 80, 96, 128)
-_BWD_PADDED_DIMS = (64, 80, 96)
+#: Padded head dims (head dim rounded up to 16) the forward kernel and the
+#: backward kernels are instantiated for: one set for both directions.
+_PADDED_DIMS = (64, 80, 96, 128)
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,10 +159,8 @@ def _check_kernel_args(q, k, v, kv_valid):
     check_kernel_layout(q, k, v, kv_valid)
 
 
-def _check_head_dim(d, dims, what):
-    if d % 8 or (d + 15) // 16 * 16 not in dims:
-        raise ValueError("%s: head dim %d not supported (a multiple of 8 "
-                         "padding to one of %s)" % (what, d, dims))
+def _head_dim_ok(d) -> bool:
+    return d % 8 == 0 and (d + 15) // 16 * 16 in _PADDED_DIMS
 
 
 def check_kernel_layout(q, k, v, kv_valid=None):
@@ -180,7 +179,10 @@ def check_kernel_layout(q, k, v, kv_valid=None):
     if lq == 0 or k.shape[2] == 0 or b * h == 0:
         raise ValueError("flash_attention: empty input %s / %s"
                          % (tuple(q.shape), tuple(k.shape)))
-    _check_head_dim(d, _FWD_PADDED_DIMS, "flash_attention")
+    if not _head_dim_ok(d):
+        raise ValueError("flash_attention: head dim %d not supported (a "
+                         "multiple of 8 padding to one of %s)"
+                         % (d, _PADDED_DIMS))
     if kv_valid is not None and (kv_valid.dtype != torch.int32
                                  or kv_valid.shape != (b, k.shape[2])):
         raise ValueError("flash_attention: kv_valid must be int32 [B, Lk]")
@@ -191,11 +193,10 @@ def check_kernel_layout(q, k, v, kv_valid=None):
 
 
 def check_bwd_layout(q, k, v, kv_valid, lse, *rows):
-    """:func:`check_kernel_layout` plus what the backward kernels take:
-    their own head dims (no 128 yet), lse float32 [B, H, Lq] and each of
-    ``rows`` (o, dO) bf16 like q, all contiguous."""
+    """:func:`check_kernel_layout` (the backward kernels take the forward's
+    head dims) plus lse float32 [B, H, Lq] and each of ``rows`` (o, dO)
+    bf16 like q, all contiguous."""
     check_kernel_layout(q, k, v, kv_valid)
-    _check_head_dim(q.shape[3], _BWD_PADDED_DIMS, "flash_attention_bwd")
     for t in rows:
         if t.dtype != torch.bfloat16 or t.shape != q.shape:
             raise ValueError("flash_attention_bwd: o and dO must be bfloat16 "
@@ -310,7 +311,8 @@ def flash_bwd_dq(q, k, v, kv_valid, causal, o, lse, do):
 
     CUDA tensors launch the kernel (it also writes delta, which
     :func:`flash_bwd_dkv` reads); CPU tensors go to
-    :func:`flash_bwd_dq_ref`. ``flash_bwd_dq.launches`` counts launches."""
+    :func:`flash_bwd_dq_ref`. ``flash_bwd_dq.launches`` counts launches,
+    ``launches_by_shape`` by shape as for :func:`flash_attention`."""
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, kv_valid, causal, o, lse, do)
     dims = _bwd_kernel_args(q, k, v, kv_valid, lse, o, do)
@@ -324,18 +326,21 @@ def flash_bwd_dq(q, k, v, kv_valid, causal, o, lse, do):
             dq.data_ptr(), *dims, int(causal), 1.0 / dims[-1] ** 0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "flash_bwd_dq")
-    _count_launch(flash_bwd_dq)
+    _count_launch(flash_bwd_dq, dims + (kv_valid is not None, bool(causal)))
     return dq, delta
 
 
 flash_bwd_dq.launches = 0
+#: Launches by (B, H, Lq, Lk, D, has kv_valid, causal), beside ``launches``.
+flash_bwd_dq.launches_by_shape = {}
 
 
 def flash_bwd_dkv(q, k, v, kv_valid, causal, lse, delta, do):
     """K3 → (dk like k, dv like v), from the delta of :func:`flash_bwd_dq`.
 
     CUDA tensors launch the kernel; CPU tensors go to
-    :func:`flash_bwd_dkv_ref`. ``flash_bwd_dkv.launches`` counts launches."""
+    :func:`flash_bwd_dkv_ref`. ``flash_bwd_dkv.launches`` counts launches,
+    ``launches_by_shape`` by shape."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, kv_valid, causal, lse, delta, do)
     _bwd_kernel_args(q, k, v, kv_valid, delta)
@@ -350,11 +355,12 @@ def flash_bwd_dkv(q, k, v, kv_valid, causal, lse, delta, do):
             dv.data_ptr(), *dims, int(causal), 1.0 / dims[-1] ** 0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "flash_bwd_dkv")
-    _count_launch(flash_bwd_dkv)
+    _count_launch(flash_bwd_dkv, dims + (kv_valid is not None, bool(causal)))
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_shape = {}
 
 
 def flash_attention_bwd(q, k, v, kv_valid, causal, o, lse, do):
@@ -375,11 +381,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, causal):
-        # Off the CPU, refuse a head dim the backward kernels lack before
-        # the forward launches, not after it.
-        if q.device.type != "cpu":
-            _check_head_dim(q.shape[3], _BWD_PADDED_DIMS,
-                            "flash_attention_bwd")
         o, lse = flash_attention(q, k, v, kv_valid, causal, return_lse=True)
         ctx.save_for_backward(q, k, v, kv_valid, o, lse)
         ctx.causal = causal
@@ -393,6 +394,19 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether :func:`multihead_attention` on the card sends a call to the
+    flash kernels: bf16 q, k and v with a head dim (a multiple of 8) that
+    pads to one of ``_PADDED_DIMS``, whatever the length. The backward
+    kernels take the same head dims, so the predicate also routes a call
+    that needs a gradient. Everything else (float32, another head dim) goes
+    to :func:`xla_attention`, as the JAX package's ``_attention`` sends
+    what it does not give its kernel. A call it routes to the kernels and
+    that fails to build or launch raises: nothing falls back."""
+    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and _head_dim_ok(q.shape[-1]))
+
+
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_valid: Optional[torch.Tensor] = None,
                         causal: bool = False,
@@ -401,6 +415,9 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``kv_valid``: [B, Lk] key-validity mask (1 = attendable).
     ``lengths``: [B] sugar for a valid-prefix mask.
+    On CUDA, :func:`kernel_takes` decides between the kernels and
+    :func:`xla_attention`; ``multihead_attention.eager_calls`` counts the
+    calls on the card it sends to :func:`xla_attention`.
     """
     lk = k.shape[2]
     if kv_valid is None and lengths is not None:
@@ -408,5 +425,11 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_valid is not None:
         kv_valid = kv_valid.to(torch.int32).contiguous()
     if q.is_cuda:
-        return flash_attention(q, k, v, kv_valid, causal)
+        if kernel_takes(q, k, v):
+            return flash_attention(q, k, v, kv_valid, causal)
+        with _LAUNCH_LOCK:
+            multihead_attention.eager_calls += 1
     return xla_attention(q, k, v, kv_valid, causal)
+
+
+multihead_attention.eager_calls = 0

@@ -22,9 +22,9 @@
 //
 // Layout: q, o, dO [B, H, Lq, D]; k, v [B, H, Lk, D]; dq like q, dk / dv
 // like k; all contiguous bf16. lse, delta f32 [B, H, Lq]; kv_valid int32
-// [B, Lk] or null. D is a multiple of 8 in [56, 96], zero-padded in shared
-// memory to DP = round_up(D, 16) (64, 80 or 96), so the padding adds exact
-// zeros to every product and the padded columns are never stored.
+// [B, Lk] or null. D is a multiple of 8 in [56, 128], zero-padded in
+// shared memory to DP = round_up(D, 16) (64, 80, 96 or 128), so the padding
+// adds exact zeros to every product and the padded columns are never stored.
 //
 // Design. Two kernels, as on the TPU, so dq needs no atomics and every
 // result is deterministic:
@@ -46,8 +46,14 @@
 // bytes: per head the backward reads q, k, v, o, dO (5 x 10 KB) and writes
 // dq, dk, dv (3 x 10 KB), ~82 KB, against ~2080 live pairs x 10*80 flops
 // ~1.7 MFLOP, i.e. ~25 ns of memory time against ~1.7 ns of tensor-core
-// time at 3.35 TB/s and 989 TFLOP/s. The design reads each input once per
-// tile pair and keeps p and ds on chip. Left for later: a K/V tile in
+// time at 3.35 TB/s and 989 TFLOP/s. At LLaVA's (q/k/v [4..24, 32, 640,
+// 128], causal, ten 64-row tiles per head) the bytes still bound it, but
+// barely: per head ~1.3 MB moved against ~170k live pairs x 10*128 flops
+// ~0.22 GFLOP (~0.39 us against ~0.22 us). The design reads each input
+// once per tile pair and keeps p and ds on chip. At DP 128 a block's
+// shared memory (~121 KB) leaves room for one block of 4 warps per SM,
+// and K3's two accumulator sets (128 floats a thread) fill the 255
+// registers and spill a little. Left for later: a K/V tile in
 // flight while the current one is used, wgmma in place of WMMA, K and Q
 // fragments held in registers across the inner loops, one kernel for
 // short sequences (a single tile holds the whole head, so dq, dk and dv
@@ -456,6 +462,7 @@ int dispatch(const Args& a, int causal, bool dkv) {
     case 64: return dispatch_mask<64>(a, causal, dkv);
     case 80: return dispatch_mask<80>(a, causal, dkv);
     case 96: return dispatch_mask<96>(a, causal, dkv);
+    case 128: return dispatch_mask<128>(a, causal, dkv);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -101,6 +101,9 @@ def test_flash_ref_matches_pallas_interpret(b, h, lq, lk, d, mask, causal):
 @pytest.mark.parametrize("b,h,lq,lk,d,mask,causal", CASES + [
     pytest.param(1, 2, 12, 5, 8, "none", True, id="causal-lq>lk-dead"),
     pytest.param(2, 2, 13, 13, 8, "deadrow", True, id="ragged-dead-causal"),
+    # LLaVA's Vicuna head dim, and 120 (padded to 128 on the card), ragged
+    pytest.param(2, 2, 20, 70, 128, "deadrow", True, id="d128-causal"),
+    pytest.param(2, 2, 17, 29, 120, "nonprefix", False, id="d120"),
 ])
 def test_flash_bwd_ref_matches_pallas_interpret(b, h, lq, lk, d, mask,
                                                 causal):

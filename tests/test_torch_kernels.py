@@ -44,6 +44,11 @@ def _inputs(b, h, lq, lk, d, mask, seed=0):
         slot = np.repeat((np.arange(b) % 2 == 0)[:, None], 576, 1)
         kv = np.concatenate([np.ones((b, 1), dtype=bool), slot,
                              np.arange(lk - 577)[None, :] < lens[:, None]], 1)
+    elif mask == "llava_text":  # text-only LLaVA rows: keys 1-576 dead
+        lens = rng.integers(8, lk - 577 + 1, size=b)
+        kv = np.concatenate([np.ones((b, 1), dtype=bool),
+                             np.zeros((b, 576), dtype=bool),
+                             np.arange(lk - 577)[None, :] < lens[:, None]], 1)
     elif mask == "hole":  # keys 64-127, a whole key tile, dead between live
         kv = np.ones((b, lk), dtype=bool)
         kv[:, 64:128] = False
@@ -66,9 +71,12 @@ def test_flash_attention_cpu_takes_plain_version():
 def test_multihead_attention_cpu_is_xla_path():
     q, k, v, _ = _inputs(2, 2, 7, 7, 8, "none")
     lengths = torch.tensor([4, 7])
+    e0 = ta.multihead_attention.eager_calls
     out = ta.multihead_attention(q, k, v, causal=True, lengths=lengths)
     kv = (torch.arange(7)[None, :] < lengths[:, None]).to(torch.int32)
     assert torch.equal(out, ta.xla_attention(q, k, v, kv, causal=True))
+    # Only calls on the card are counted as routed away from the kernels.
+    assert ta.multihead_attention.eager_calls == e0
 
 
 def test_kernel_path_refuses_gradients_and_other_devices(monkeypatch):
@@ -121,24 +129,49 @@ def test_kernel_layout_refusals(shape, dtype, kv_dtype, match):
 
 
 @pytest.mark.parametrize("d", [120, 128])
-def test_head_dim_128_is_forward_only(d):
-    """Head dims padding to 128 (LLaVA's Vicuna) have a forward kernel and
-    no backward one: the forward check takes them, the backward check and
-    a gradient through the kernel are refused before anything launches."""
+def test_head_dim_128_is_forward_only(d, monkeypatch):
+    """Head dims padding to 128 (LLaVA's Vicuna) are no longer forward
+    only: they are taken by the forward check and by the backward check,
+    and an input at that head dim that needs a gradient reaches the
+    autograd Function (on a tensor off the card it is then refused for
+    its device, not for its head dim, before anything launches); head dim
+    144 is refused by both checks."""
     q = torch.zeros((2, 2, 8, d), dtype=torch.bfloat16)
     kv = torch.ones((2, 8), dtype=torch.int32)
     lse = torch.zeros((2, 2, 8))
     ta.check_kernel_layout(q, q, q, kv)
-    with pytest.raises(ValueError, match="flash_attention_bwd: head dim"):
-        ta.check_bwd_layout(q, q, q, kv, lse, q, q)
-    ta.check_bwd_layout(*(t[..., :80].contiguous() for t in (q, q, q)), kv,
-                        lse, *(q[..., :80].contiguous(),) * 2)
+    ta.check_bwd_layout(q, q, q, kv, lse, q, q)
+    wide = torch.zeros((2, 2, 8, 144), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 144"):
+        ta.check_kernel_layout(wide, wide, wide, kv)
+    with pytest.raises(ValueError, match="head dim 144"):
+        ta.check_bwd_layout(wide, wide, wide, kv, lse, wide, wide)
     g = torch.zeros((1, 1, 8, d), dtype=torch.bfloat16, device="meta",
                     requires_grad=True)
+    reached = []
+    forward = ta.FlashAttention.forward
+    monkeypatch.setattr(ta.FlashAttention, "forward", staticmethod(
+        lambda *a: reached.append(a[1].shape) or forward(*a)))
     n0 = ta.flash_attention.launches
-    with pytest.raises(ValueError, match="flash_attention_bwd: head dim"):
+    with pytest.raises(ValueError, match="CUDA"):
         ta.flash_attention(g, g.detach(), g.detach())
-    assert ta.flash_attention.launches == n0
+    assert reached == [g.shape] and ta.flash_attention.launches == n0
+
+
+@pytest.mark.parametrize("d,dtype,kernel", [
+    (64, torch.bfloat16, True), (80, torch.bfloat16, True),
+    (88, torch.bfloat16, True), (96, torch.bfloat16, True),
+    (120, torch.bfloat16, True), (128, torch.bfloat16, True),
+    (64, torch.float32, False), (128, torch.float32, False),
+    (32, torch.bfloat16, False), (104, torch.bfloat16, False),
+    (256, torch.bfloat16, False), (36, torch.bfloat16, False),
+])
+def test_kernel_route(d, dtype, kernel):
+    """multihead_attention's route on the card: bf16 at a head dim padding
+    to 64/80/96/128 goes to the kernels (forward and backward alike), any
+    other dtype or head dim to xla_attention."""
+    q = torch.zeros((1, 2, 4, d), dtype=dtype)
+    assert ta.kernel_takes(q, q, q) is kernel
 
 
 def test_kernel_layout_refuses_a_strided_view():
@@ -228,6 +261,30 @@ def test_masked_key_tile_leaves_state_unchanged(cuda_device, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(64, torch.float32),
+                                     (128, torch.float32),
+                                     (32, torch.bfloat16)])
+def test_multihead_attention_routes_the_rest_eagerly(cuda_device, d, dtype):
+    """On the card, a call the kernels do not take (float32, head dim 32)
+    goes to xla_attention, with or without a gradient, launches no kernel,
+    and counts as an eager call."""
+    q, k, v, kv = _inputs(2, 2, 33, 40, d, "deadrow")
+    q, k, v = (t.to(cuda_device, dtype) for t in (q, k, v))
+    kv = kv.to(cuda_device)
+    n0 = (ta.flash_attention.launches, ta.flash_bwd_dq.launches)
+    e0 = ta.multihead_attention.eager_calls
+    out = ta.multihead_attention(q, k, v, kv_valid=kv, causal=True)
+    assert torch.equal(out, ta.xla_attention(q, k, v, kv, causal=True))
+    assert ta.multihead_attention.eager_calls == e0 + 1
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ta.multihead_attention(*leaves, kv_valid=kv, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    assert all(t.grad is not None for t in leaves)
+    assert (ta.flash_attention.launches, ta.flash_bwd_dq.launches) == n0
+    assert ta.multihead_attention.eager_calls == e0 + 2
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_float32_on_the_card(cuda_device):
     q = torch.zeros((1, 1, 8, 64), device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -252,6 +309,12 @@ def _bwd_case(cuda_device, b, h, lq, lk, d, mask, causal):
     (2, 2, 33, 130, 80, "deadrow", False),
     (1, 2, 40, 97, 64, "prefix", True),        # Lq < Lk, ragged
     (3, 2, 24, 9, 80, "none", True),           # Lq > Lk: early rows dead
+    # head dims 128 and 120 (LLaVA's Vicuna: DP 128)
+    (4, 4, 640, 640, 128, "llava", True),      # LLaVA's rows, slot after BOS
+    (2, 4, 640, 640, 128, "llava_text", True),  # text-only: keys 1-576 dead
+    (2, 3, 70, 131, 120, "deadrow", False),    # D 120, ragged Lk, dead row
+    (1, 2, 40, 97, 128, "prefix", True),       # Lq < Lk
+    (2, 3, 70, 70, 120, "nonprefix", True),
 ])
 def test_backward_kernels_match_plain_version(cuda_device, b, h, lq, lk, d,
                                               mask, causal):
@@ -296,11 +359,13 @@ def test_function_gradients_on_the_card(cuda_device):
                                       "prefix", True)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     n0 = (ta.flash_attention.launches, ta.flash_bwd_dq.launches)
+    e0 = ta.multihead_attention.eager_calls
     o = ta.multihead_attention(*leaves, kv_valid=kv, causal=True)
     o.backward(do)
     torch.cuda.synchronize()
     assert ta.flash_attention.launches == n0[0] + 1
     assert ta.flash_bwd_dq.launches == n0[1] + 1
+    assert ta.multihead_attention.eager_calls == e0
     ref = [t.float().requires_grad_(True) for t in (q, k, v)]
     ta.flash_attention_ref(*ref, kv, True).backward(do.float())
     for got, r in zip(leaves, ref):

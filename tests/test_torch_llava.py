@@ -342,3 +342,27 @@ def test_llava_path_meets_kernel_contract(monkeypatch):
                           (128, 68, 68, True, True)}
     assert line["cases"] == 8 and line["edit_n"] == 4
     assert ref["phase"] == "llava_reference" and ref["rows"] == 12
+
+
+@pytest.mark.parametrize("ratio,ok", [(0.9, True), (1.24, True),
+                                      (1.26, False), (2.0, False)])
+def test_chained_logits_gate_is_relative_to_their_floor(ratio, ok):
+    """``llava_reference`` gates the chained logits at 1.25 x their bf16
+    noise floor (plain against float32 attention, on the same line);
+    BLIP-2's reference keeps the absolute 5e-2."""
+    floor = 0.0501
+    out = {"vision_rel_l2": 0.014, "decoder_logits_rel_l2": 0.03,
+           "logits_rel_l2": ratio * floor,
+           "logits_rel_l2_plain_vs_float32": floor}
+    out["bounds"] = chip_smoke.reference_bounds(
+        out, chip_smoke.LLAVA_EVAL.chained_floor_factor)
+    assert out["bounds"]["logits_rel_l2"] == pytest.approx(1.25 * floor)
+    if ok:
+        chip_smoke.check_bounds(out)
+    else:
+        with pytest.raises(AssertionError, match="logits_rel_l2"):
+            chip_smoke.check_bounds(out)
+    assert chip_smoke.reference_bounds(
+        out, chip_smoke.BLIP2_EVAL.chained_floor_factor) == dict.fromkeys(
+        ("vision_rel_l2", "decoder_logits_rel_l2", "logits_rel_l2"),
+        chip_smoke.LOGITS_TOL)

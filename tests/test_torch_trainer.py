@@ -290,3 +290,14 @@ def test_chip_smoke_train_phases_meet_kernel_contract(monkeypatch):
     assert out["suffix_input_grad_rel_l2"] == 0.0
     assert out["suffix_input_grad_norm"] > 0
     assert not out["leaves_with_zero_gradient"]
+
+
+@pytest.mark.parametrize("n,ok", [(0, True), (1, False), (7, False)])
+def test_eager_attention_calls_fail_the_smoke(n, ok):
+    """A driven path or a reference phase's kernel side whose attention
+    calls on the card went to xla_attention fails the smoke run."""
+    if ok:
+        chip_smoke.check_no_eager_calls(n, "llava_train_path")
+    else:
+        with pytest.raises(AssertionError, match="%d attention calls" % n):
+            chip_smoke.check_no_eager_calls(n, "llava_train_path")
